@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from feedback_gnn_tpu_torch/csrc with nvcc,
-holds it against its plain PyTorch version on the card, drives the main
-path (the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry, then
-the [[1270,28]] compacted workload of bench.py) and checks the decoded
-logical error rate.  Prints each phase's seconds, the card's name and power
-limit, one JSON line describing every kernel, and as its last line
-{"ok": true, "device": {...}}.  Exits non-zero, with no result line, when
-there is no CUDA card or any phase fails.  Imports no JAX.
+Builds the port's CUDA kernels from feedback_gnn_tpu_torch/csrc with one
+nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode), holds each
+against its plain PyTorch version on the card, and drives the paths that
+run them or their neighbours: the [[882,24]] sandwich cascade of
+feedback_gnn_tpu_torch.entry and the [[1270,28]] compacted workload of
+bench.py (K1); the binary BSC evaluation step on [[882,24]]'s hx (K2); the
+plain gather BP4 step on [[882,24]] (no kernel).  Each path is checked
+against a published error rate, with every kernel's launch count set to 0
+just before it and read just after.  Prints each phase's seconds, the
+card's name and power limit, one JSON line describing every kernel, and as
+its last line {"ok": true, "device": {...}}.  Exits non-zero, with no
+result line, when there is no CUDA card or any phase fails.  Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 DEADLINE_S = 1100  # a hang prints every thread's stack and exits non-zero
@@ -46,8 +52,19 @@ CASES = [
     ("minsum", None),
 ]
 
+# The binary BSC path (examples/osd_eval.py --mode bp2 on [[882,24]]: hx,
+# lx) on K2, and the plain gather BP4 path, each at the batch of the runs
+# behind RESULTS.md's plain-BP rows, checked against the JAX package's
+# flagged rate over 1.02e7 blocks (RESULTS.md), the TF original's beside it
+BP2 = dict(p=0.05, batch=20480, iters=100, cn_type="minsum", factor=0.8, steps=3,
+           ref=0.05275, tf=0.05342)
+BP4_PLAIN = dict(p=0.10, batch=20480, iters=100, cn_type="minsum", factor=0.8, steps=3,
+                 ref=0.03477, tf=0.03482)
+K2_CMP_BATCH, K2_CMP_ITERS, K2_CMP_FACTOR = 256, 100, 0.8
+
 # Work of one decode, for the bound: float32 operations per edge and
-# iteration (transcendentals counted as one each), read off csrc/bp4_qc.cu.
+# iteration (transcendentals counted as one each), read off csrc/bp4_qc.cu
+# and csrc/bp2_qc.cu (the CN side is qc_common.cuh's cn_node in both).
 VN_OPS_PER_EDGE = 12  # sum-add, two subs, lse_neg (8), sub
 VN_OPS_PER_NODE = 18  # marginals (4 adds), two softplus (7 each)
 CN_OPS_PER_EDGE = {
@@ -57,6 +74,7 @@ CN_OPS_PER_EDGE = {
     ("boxplus", None): 14,
     ("minsum", None): 15,
 }
+K2_VN_OPS_PER_EDGE = 2  # add to the total, subtract for the extrinsic
 H100_F32_OPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3, H100 SXM data sheet
 
@@ -77,6 +95,31 @@ def k1_bound_ms(qc, batch, iters, cn_type="boxplus-phi", phi_impl=None):
     ops = batch * (iters * per_iter + edges + 4 * n)
     t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound_ms(spec, batch, iters, cn_type):
+    """Least time of one K2 decode on an H100: the larger of its bytes
+    (logits and syndrome read once, marginal logits written once) over the
+    memory rate and its f32 operations over the f32 rate."""
+    n, m, edges = spec.nb * spec.l, spec.mb * spec.l, spec.num_edges
+    nbytes = 4 * batch * (n + m + n)
+    per_iter = edges * (K2_VN_OPS_PER_EDGE + CN_OPS_PER_EDGE[(cn_type, None)]) + m
+    # entry: clip (2) and negate per VN, 1 - 2s (2) per CN; exit: final sums, negate
+    ops = batch * (iters * per_iter + 3 * n + 2 * m + edges + n)
+    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts():
+    from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
+
+    bp4_qc.launches = bp2_qc.launches = 0
+
+
+def read_counts():
+    from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
+
+    return {"K1": bp4_qc.launches, "K2": bp2_qc.launches}
 
 
 def random_inputs(qc, batch, device, seed):
@@ -153,6 +196,62 @@ def compare_kernel(codes, device):
     return worst
 
 
+def bsc_inputs(hx, batch, p, device, seed):
+    """The binary path's own kernel inputs: the constant BSC prior logit
+    and the syndrome of BSC(p) noise."""
+    from feedback_gnn_tpu_torch.channels import bsc_sample
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = hx.shape[1]
+    llr = torch.full((n, batch), -float(torch.log(torch.tensor((1.0 - p) / p))), device=device)
+    syn = mod2_matmul(hx, bsc_sample(g, p, (n, batch))).float()
+    return llr, syn
+
+
+def check_k2(label, out, ref):
+    """Hold K2's marginal logits against the plain version's; print the
+    largest error and the share of agreeing decisions, raise outside
+    tolerance."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = bool(((out - ref).abs() <= ATOL + RTOL * ref.abs()).all())
+    agree = float(((out > 0) == (ref > 0)).float().mean())
+    print(f"  K2 vs plain {label}: max_abs_err={err:.3e} decisions_agree={agree:.6f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version: {label}")
+    return err
+
+
+def compare_k2(specs, device):
+    """K2 against its plain version on the card, every CN rule, on each
+    paper code's hx."""
+    from feedback_gnn_tpu_torch.decoders.bp2_qc import bp2_qc_logits, bp2_qc_logits_plain
+
+    worst = 0.0
+    for name, spec in specs.items():
+        g = torch.Generator(device=device).manual_seed(3)
+        n, m = spec.nb * spec.l, spec.mb * spec.l
+        llr = torch.randn((n, K2_CMP_BATCH), generator=g, device=device) * 3.0
+        syn = torch.randint(0, 2, (m, K2_CMP_BATCH), generator=g, device=device).float()
+        for cn_type in ("boxplus-phi", "boxplus", "minsum"):
+            args = (spec, llr, syn, K2_CMP_ITERS, cn_type, K2_CMP_FACTOR)
+            label = f"{name} hx B={K2_CMP_BATCH} iters={K2_CMP_ITERS} {cn_type} f={K2_CMP_FACTOR}"
+            worst = max(worst, check_k2(label, bp2_qc_logits(*args), bp2_qc_logits_plain(*args)))
+    return worst
+
+
+def check_rate(label, flagged, samples, ref, tf):
+    """The flagged rate must land within LER_SIGMAS of the JAX package's."""
+    rate = flagged / samples
+    sigma = (ref * (1 - ref) / samples) ** 0.5
+    print(f"{label}: flagged={flagged}/{samples} rate={rate:.5f} JAX package {ref} "
+          f"({abs(rate - ref) / sigma:.2f} sigma), TF original {tf}")
+    if abs(rate - ref) >= LER_SIGMAS * sigma:
+        raise AssertionError(f"{label}: flagged rate {rate} outside {LER_SIGMAS} sigma of {ref}")
+
+
 def timed_windows(step, args, batch):
     """Syndromes/s of back-to-back steps over WINDOWS windows of at least
     WINDOW_S seconds each (each window ends with a fetch of the last
@@ -217,6 +316,7 @@ def main() -> int:
         return 1
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     from feedback_gnn_tpu_torch import _build, resolve_device
+    from feedback_gnn_tpu_torch.codes import build_graph, detect_qc_structure, ghp_882_24
     from feedback_gnn_tpu_torch.decoders import bp4_qc
     from feedback_gnn_tpu_torch.entry import load_code
 
@@ -246,26 +346,41 @@ def main() -> int:
 
     t0 = time.perf_counter()
     codes = {nm: load_code(nm, device) for nm in ("n882", "n1270")}
+    # the binary path decodes with [[882,24]]'s hx; its spec two ways
+    code882 = ghp_882_24()
+    hx = torch.as_tensor(np.asarray(code882.hx), dtype=torch.float32, device=device)
+    lx = torch.as_tensor(np.asarray(code882.lx), dtype=torch.float32, device=device)
+    spec882 = codes["n882"][1].qx
+    if detect_qc_structure(np.asarray(code882.hx), spec882.l) != spec882:
+        raise AssertionError("the QC spec of [[882,24]]'s hx differs between qc_pair_from_code and "
+                             "detect_qc_structure")
+    hx_graph = build_graph(np.asarray(code882.hx)).to(device)
+    k2_specs = {"n882": spec882, "n1270": codes["n1270"][1].qx}
     phase("codes", t0)
 
-    # 3. kernel against plain version
+    # 3. kernels against their plain versions
     t0 = time.perf_counter()
     max_err = compare_kernel(codes, device)
     phase("kernel_vs_plain", t0)
 
+    t0 = time.perf_counter()
+    k2_err = compare_k2(k2_specs, device)
+    phase("k2_vs_plain", t0)
+
     # 4. the main path
     t0 = time.perf_counter()
-    bp4_qc.launches = 0
+    reset_counts()
     fn, gen, flagged, logical, samples = run_main_path(device)
-    launches = bp4_qc.launches
+    counts = read_counts()
+    launches = counts["K1"]
     ler = logical / samples
     sigma = (LER_REF * (1 - LER_REF) / samples) ** 0.5
     print(f"main path [[882,24]] nG=3 p={LER_P}: flagged={flagged} logical={logical}/{samples} "
-          f"LER={ler:.5f} ref={LER_REF} ({abs(ler - LER_REF) / sigma:.2f} sigma) K1 launches={launches}")
+          f"LER={ler:.5f} ref={LER_REF} ({abs(ler - LER_REF) / sigma:.2f} sigma) launches={counts}")
     if abs(ler - LER_REF) >= LER_SIGMAS * sigma:
         raise AssertionError(f"LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
-    if launches != LER_STEPS * (1 + 3):
-        raise AssertionError(f"K1 launched {launches} times, expected {LER_STEPS * 4}")
+    if counts != {"K1": LER_STEPS * (1 + 3), "K2": 0}:
+        raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, K2=0")
     rates, step_ms, _ = timed_windows(fn, (gen, 0.08), 256)
     main_ms = report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
     phase("main_path", t0)
@@ -277,19 +392,19 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     step(gen, BENCH["p"])  # warm-up
     torch.cuda.synchronize()
-    bp4_qc.launches = 0
+    reset_counts()
     rates, step_ms, counts = timed_windows(step, (gen, BENCH["p"]), BENCH["batch"])
-    launches_b = bp4_qc.launches
+    launches_b = read_counts()
     flagged_b = sum(int(c[0]) for c in counts)
     logical_b = sum(int(c[1]) for c in counts)
     overflow = sum(int(c[2]) for c in counts)
     bench_ms = report_rate(f"bench [[1270,28]] nG=5 p={BENCH['p']} B={BENCH['batch']}", rates, step_ms, card)
     print(f"bench: {len(counts)} steps, flagged={flagged_b} logical={logical_b} overflow={overflow} "
-          f"K1 launches={launches_b}")
+          f"launches={launches_b}")
     if overflow != 0:
         raise AssertionError(f"compaction overflow {overflow}")
-    if launches_b != len(counts) * (2 + cfg.num_rounds):
-        raise AssertionError(f"K1 launched {launches_b} times in {len(counts)} bench steps")
+    if launches_b != {"K1": len(counts) * (2 + cfg.num_rounds), "K2": 0}:
+        raise AssertionError(f"kernel launches {launches_b} in {len(counts)} bench steps")
     phase("bench", t0)
 
     # 6. K1 against its plain version, and both times, at every shape the
@@ -307,10 +422,8 @@ def main() -> int:
     for nm, batch, iters in shapes:
         qc_s = codes[nm][1]
         llr, sx, sz = random_inputs(qc_s, batch, device, seed=2)
-        saved = bp4_qc.launches
         out = bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters)
         k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters), reps=10)
-        bp4_qc.launches = saved  # comparison and timing launches do not count
         ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters)
         max_err = max(max_err, check_against_plain(f"{nm} B={batch} iters={iters}", out, ref))
         del out, ref
@@ -321,29 +434,117 @@ def main() -> int:
               f"bound {b_ms:.5f} ms ({b_by}) on {card}")
     phase("k1_timing", t0)
 
-    # 7. where a step's device time goes (profiled steps do not count)
+    # 7. the binary BSC path: bp2_bsc_eval_step on [[882,24]]'s hx, on K2
     t0 = time.perf_counter()
-    saved = bp4_qc.launches
+    from feedback_gnn_tpu_torch.models import bp2_bsc_eval_step, bp4_plain_eval_step
+
+    def bp2_step(g, p):
+        return bp2_bsc_eval_step(hx_graph, hx, lx, g, p, BP2["batch"], num_iter=BP2["iters"],
+                                 cn_type=BP2["cn_type"], normalization_factor=BP2["factor"],
+                                 qc_spec=spec882)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    reset_counts()
+    outs = [bp2_step(gen, BP2["p"]) for _ in range(BP2["steps"])]
+    counts = read_counts()
+    k2_launches = counts["K2"]
+    flagged2 = sum(int(o[0]) for o in outs)
+    logical2 = sum(int(o[1]) for o in outs)
+    print(f"bp2_path launches={counts}; logical={logical2}")
+    check_rate(f"bp2_path [[882,24]] hx BSC p={BP2['p']} {BP2['cn_type']} f={BP2['factor']} "
+               f"x{BP2['iters']} B={BP2['batch']}", flagged2, BP2["steps"] * BP2["batch"],
+               BP2["ref"], BP2["tf"])
+    if counts != {"K1": 0, "K2": BP2["steps"]}:
+        raise AssertionError(f"kernel launches {counts} in {BP2['steps']} bp2_path steps")
+    rates, step_ms, _ = timed_windows(bp2_step, (gen, BP2["p"]), BP2["batch"])
+    bp2_ms = report_rate(f"bp2_path throughput [[882,24]] hx B={BP2['batch']} p={BP2['p']}",
+                         rates, step_ms, card)
+    phase("bp2_path", t0)
+
+    # 8. the plain gather BP4 path on [[882,24]] (runs no kernel)
+    t0 = time.perf_counter()
+    graph882 = codes["n882"][0]
+
+    def bp4_step(g, p):
+        return bp4_plain_eval_step(graph882, g, p, BP4_PLAIN["batch"], num_iter=BP4_PLAIN["iters"],
+                                   cn_type=BP4_PLAIN["cn_type"],
+                                   normalization_factor=BP4_PLAIN["factor"])
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    reset_counts()
+    flagged4 = logical4 = 0
+    bp4_step_ms = []
+    for _ in range(BP4_PLAIN["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f, lg = bp4_step(gen, BP4_PLAIN["p"])
+        flagged4 += int(f)
+        logical4 += int(lg)
+        torch.cuda.synchronize()
+        bp4_step_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"bp4_plain_path launches={read_counts()}; logical={logical4}; ms per step "
+          + ", ".join(f"{t:.3f}" for t in bp4_step_ms) + f" on {card}")
+    check_rate(f"bp4_plain_path [[882,24]] p={BP4_PLAIN['p']} {BP4_PLAIN['cn_type']} "
+               f"f={BP4_PLAIN['factor']} x{BP4_PLAIN['iters']} B={BP4_PLAIN['batch']}",
+               flagged4, BP4_PLAIN["steps"] * BP4_PLAIN["batch"], BP4_PLAIN["ref"], BP4_PLAIN["tf"])
+    bp4_ms = statistics.median(bp4_step_ms)
+    phase("bp4_plain_path", t0)
+
+    # 9. K2 against its plain version, and both times, at the bp2_path shape
+    t0 = time.perf_counter()
+    from feedback_gnn_tpu_torch.decoders.bp2_qc import bp2_qc_logits, bp2_qc_logits_plain
+
+    llr, syn = bsc_inputs(hx, BP2["batch"], BP2["p"], device, seed=7)
+    k2_args = (spec882, llr, syn, BP2["iters"], BP2["cn_type"], BP2["factor"])
+    k2_ms = time_ms(lambda: bp2_qc_logits(*k2_args), reps=10)
+    k2_err = max(k2_err, check_k2(f"n882 hx B={BP2['batch']} iters={BP2['iters']} {BP2['cn_type']}",
+                                  bp2_qc_logits(*k2_args), bp2_qc_logits_plain(*k2_args)))
+    k2_plain_ms = time_ms(lambda: bp2_qc_logits_plain(*k2_args), reps=2)
+    k2_b_ms, k2_b_by = k2_bound_ms(spec882, BP2["batch"], BP2["iters"], BP2["cn_type"])
+    print(f"K2 n882 hx B={BP2['batch']} iters={BP2['iters']} {BP2['cn_type']}: kernel {k2_ms:.4f} ms, "
+          f"plain {k2_plain_ms:.4f} ms, bound {k2_b_ms:.5f} ms ({k2_b_by}) on {card}")
+    phase("k2_timing", t0)
+
+    # 10. where a step's device time goes
+    t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
     profile_step(f"bench [[1270,28]] B={BENCH['batch']} p={BENCH['p']}", step, (gen, BENCH["p"]),
                  bench_ms, card)
-    bp4_qc.launches = saved
+    profile_step(f"bp2_path [[882,24]] hx B={BP2['batch']} p={BP2['p']}", bp2_step, (gen, BP2["p"]),
+                 bp2_ms, card)
+    profile_step(f"bp4_plain_path [[882,24]] B={BP4_PLAIN['batch']} p={BP4_PLAIN['p']}", bp4_step,
+                 (gen, BP4_PLAIN["p"]), bp4_ms, card)
     phase("profile", t0)
 
     k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64)]
-    kernels = {"kernels": [{
-        "name": "bp4_qc_marginals",
-        "route": "cuda",
-        "source": "feedback_gnn_tpu_torch/csrc/bp4_qc.cu",
-        "replaces": "feedback_gnn_tpu/decoders/bp4_qc.py:329",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }]}
+    kernels = {"kernels": [
+        {
+            "name": "bp4_qc_marginals",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/bp4_qc.cu",
+            "replaces": "feedback_gnn_tpu/decoders/bp4_qc.py:329",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        },
+        {
+            "name": "bp2_qc_logits",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/bp2_qc.cu",
+            "replaces": "feedback_gnn_tpu/decoders/bp2_qc.py:116",
+            "launches": k2_launches,
+            "max_abs_err": k2_err,
+            "ms": k2_ms,
+            "plain_ms": k2_plain_ms,
+            "bound_ms": k2_b_ms,
+            "bound_by": k2_b_by,
+            "library_ms": None,
+        },
+    ]}
     print(f"phase total: {time.perf_counter() - t_all:.2f} s")
     print(card)
     print(json.dumps(kernels))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-At first use, one ``nvcc`` compiles every ``csrc/*.cu`` into a shared
-library with a plain C interface, which ``ctypes`` loads.  No PyTorch
+At first use, one ``nvcc`` compiles every ``csrc/*.cu`` (K1 ``bp4_qc.cu``
+and K2 ``bp2_qc.cu``, which share ``qc_common.cuh``) into a shared library
+with a plain C interface, which ``ctypes`` loads.  No PyTorch
 headers are involved, so the build takes seconds.  The library goes into
 ``_build/`` beside this file (listed in .gitignore), named by a hash of the
 sources and the flags: a library left over from other sources can never be
@@ -90,6 +91,8 @@ def load_kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.fgt_bp4_qc_launch.argtypes = [p, p, p, p, p] + [i] * 15 + [ctypes.c_float, i, i, p]
     dll.fgt_bp4_qc_launch.restype = i
+    dll.fgt_bp2_qc_launch.argtypes = [p, p, p, p] + [i] * 10 + [ctypes.c_float, i, i, p]
+    dll.fgt_bp2_qc_launch.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

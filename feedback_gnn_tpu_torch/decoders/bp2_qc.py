@@ -1,0 +1,134 @@
+"""Fused binary BP for one quasi-cyclic parity-check matrix: a CUDA kernel
+and its plain PyTorch version.
+
+``bp2_qc_logits`` runs ``num_iter`` flooding iterations of binary syndrome
+BP with all message state of a sample kept on chip and returns the
+marginal logits.  It replaces the Pallas kernel of
+``feedback_gnn_tpu/decoders/bp2_qc.py`` (``bp2_qc_logits``); the CUDA
+source is ``csrc/bp2_qc.cu``.  CPU tensors take the plain version below,
+CUDA tensors launch the kernel (or raise), never the plain version.
+
+Semantics are those of ``decoders/bp2.py``: channel logits (positive = bit
+1) are clipped to +-20 and negated into "true" LLRs, the syndrome sign
+multiplies the CN product, and the marginals are negated back into logits.
+The VN total starts from the channel LLR and adds the messages in
+``vn_groups`` order; the CN rules are those of the quaternary decoder
+(decoders/bp4_qc.py) with phi in the tanh form.  Eval only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..codes.qc import QCGraphSpec
+from .bp4_qc import (
+    CN_TYPES, MAX_DEG, SMEM_LIMIT, THREADS, _cn_plain, _roll, _side_index, _side_table, _SideIndex,
+)
+from .cn_update import LLR_MAX
+
+__all__ = ["bp2_qc_logits", "bp2_qc_logits_plain", "launches"]
+
+# kernel launches since the last reset; the plain version does not count
+launches = 0
+
+
+def _vn_totals(v, side: _SideIndex, llr):
+    """Per-VN totals llr + sum of the VN-frame planes, in vn_groups order:
+    [nb, l, B]."""
+    ext = torch.cat([v, torch.zeros_like(v[:1])], dim=0)  # pad entries add an exact 0
+    acc = llr
+    for d in range(side.vn_tab.shape[1]):
+        acc = acc + ext[side.vn_tab[:, d]]
+    return acc
+
+
+def bp2_qc_logits_plain(spec: QCGraphSpec, llr_ch, syndrome, num_iter: int,
+                        cn_type: str = "boxplus-phi", normalization_factor: float = 1.0):
+    """The plain PyTorch version of the kernel, on whatever device the
+    tensors lie: index gathers over [G, l, B] planes.  Same contract as
+    ``bp2_qc_logits``."""
+    side = _side_index(spec, llr_ch.device)
+    l, nb, mb = spec.l, spec.nb, spec.mb
+    b = llr_ch.shape[-1]
+    factor = float(normalization_factor)
+    llr = -llr_ch.to(torch.float32).clamp(-LLR_MAX, LLR_MAX).reshape(nb, l, b)
+    syn = 1.0 - 2.0 * syndrome.to(torch.float32).reshape(mb, l, b)
+    msg = torch.zeros((spec.num_groups, l, b), dtype=torch.float32, device=llr_ch.device)
+    for _ in range(num_iter):
+        v = _roll(msg, side.to_vn)
+        ext = _vn_totals(v, side, llr)[side.grp_j] - v
+        msg = _cn_plain(_roll(ext, side.to_cn), syn, side, cn_type, factor, None)
+    tot = _vn_totals(_roll(msg, side.to_vn), side, llr)
+    return -tot.reshape(nb * l, b)
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_table(spec: QCGraphSpec, device: torch.device):
+    """The kernel's int32 table (layout of Side in csrc/qc_common.cuh) on
+    the card, its degree bounds and the shared-memory size in bytes."""
+    tab, dc, dv = _side_table(spec)
+    if max(dc, dv) > MAX_DEG:
+        raise ValueError(f"node degree above the kernel's MAX_DEG={MAX_DEG}")
+    floats = spec.num_groups * spec.l + (spec.nb + spec.mb) * spec.l
+    smem = 4 * floats + 4 * tab.size
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"one sample's state ({smem} B) exceeds a block's shared memory")
+    return torch.as_tensor(tab, device=device), (dc, dv), smem
+
+
+def _launch_kernel(spec: QCGraphSpec, llr_ch, syndrome, num_iter, cn_type, factor):
+    from .._build import load_kernels
+
+    global launches
+    lib = load_kernels()
+    dev = llr_ch.device
+    tab, (dc, dv), smem = _kernel_table(spec, dev)
+    n, b = spec.nb * spec.l, llr_ch.shape[-1]
+    # per-sample contiguous copies: the kernel gives each sample one block
+    llr_k = llr_ch.to(torch.float32).T.contiguous()  # [B, n]
+    syn_k = syndrome.to(torch.float32).T.contiguous()  # [B, m]
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if b:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fgt_bp2_qc_launch(
+                llr_k.data_ptr(), syn_k.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                int(tab.numel()), b, spec.l, spec.nb, spec.mb, spec.num_groups, dc, dv,
+                int(num_iter), CN_TYPES.index(cn_type), ctypes.c_float(factor), THREADS, smem,
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"bp2_qc kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")
+        launches += 1
+    return out.T  # [n, B]
+
+
+def bp2_qc_logits(spec: QCGraphSpec, llr_ch, syndrome, num_iter: int,
+                  cn_type: str = "boxplus-phi", normalization_factor: float = 1.0):
+    """Run the fused QC BP2 decode.
+
+    Args:
+      llr_ch: [n, B] channel LOGITS (positive = bit 1), n = spec.nb * spec.l.
+      syndrome: [m, B] in {0,1}, m = spec.mb * spec.l.
+    Returns marginal logits [n, B] (the convention of ``bp2_decode``).
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """
+    if cn_type not in CN_TYPES:
+        raise ValueError(f"unsupported cn_type {cn_type!r}")
+    n, b = spec.nb * spec.l, llr_ch.shape[-1]
+    if llr_ch.shape != (n, b):
+        raise ValueError(f"llr_ch shape {tuple(llr_ch.shape)} != ({n}, B)")
+    if syndrome.shape != (spec.mb * spec.l, b):
+        raise ValueError(f"syndrome shape {tuple(syndrome.shape)} != ({spec.mb * spec.l}, {b})")
+    if llr_ch.device != syndrome.device:
+        raise ValueError(f"inputs lie on several devices: {llr_ch.device}, {syndrome.device}")
+    dev = llr_ch.device
+    if dev.type == "cuda":
+        return _launch_kernel(spec, llr_ch, syndrome, num_iter, cn_type, float(normalization_factor))
+    if dev.type == "cpu":
+        return bp2_qc_logits_plain(spec, llr_ch, syndrome, num_iter, cn_type, normalization_factor)
+    raise ValueError(f"unsupported device {dev}")

@@ -168,8 +168,8 @@ def _cn_plain(msg, syn_pm, side: _SideIndex, cn_type, factor, phi_impl):
 
 
 @functools.lru_cache(maxsize=8)
-def _side_indices(qc: QCPair, device: torch.device):
-    return _SideIndex(qc.qx, device), _SideIndex(qc.qz, device)
+def _side_index(spec: QCGraphSpec, device: torch.device):
+    return _SideIndex(spec, device)
 
 
 def bp4_qc_marginals_plain(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter: int,
@@ -178,7 +178,7 @@ def bp4_qc_marginals_plain(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter:
     """The plain PyTorch version of the kernel, on whatever device the
     tensors lie: index gathers over [G, l, B] planes.  Same contract as
     ``bp4_qc_marginals``."""
-    sx_idx, sz_idx = _side_indices(qc, llr_ch.device)
+    sx_idx, sz_idx = _side_index(qc.qx, llr_ch.device), _side_index(qc.qz, llr_ch.device)
     l, nb = qc.l, qc.qx.nb
     b = llr_ch.shape[-1]
     factor = float(normalization_factor)

@@ -1,4 +1,4 @@
-"""Check-node constants, the phi function and boxplus over PCM rows.
+"""Check-node updates, the phi function and boxplus over PCM rows.
 
 Semantics and clip constants follow ``feedback_gnn_tpu/decoders/cn_update.py``:
 
@@ -8,21 +8,33 @@ Semantics and clip constants follow ``feedback_gnn_tpu/decoders/cn_update.py``:
   clip 1 - 1e-7;
 * minsum: +-20 input clip, duplicate-min detection with ``_LARGE_VAL``.
 
-The per-plane CN rules of the quasi-cyclic decoder live beside its kernel
-(decoders/bp4_qc.py).
+The slot-major CN updates (``cn_update_phi``, ``cn_update_tanh``,
+``cn_update_minsum``) take messages ``[dc, c_pad, B]`` in the CN frame of
+codes/graph.py, the syndrome as +-1 ``[c_pad, B]`` and the slot mask
+``[dc, c_pad]``; pad slots come out as exact zeros.  The per-plane CN rules
+of the quasi-cyclic decoders live beside their kernels (decoders/bp4_qc.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["phi", "boxplus_rows", "softplus"]
+__all__ = [
+    "phi", "boxplus_rows", "softplus", "cn_update_phi", "cn_update_tanh", "cn_update_minsum",
+    "CN_UPDATES",
+]
 
 PHI_CLIP_MIN = 8.5e-8
 PHI_CLIP_MAX = 16.635532
 ATANH_CLIP = 1.0 - 1e-7
 LLR_MAX = 20.0
 _LARGE_VAL = 10000.0  # minsum "ignore" constant
+# XLA and TensorFlow evaluate float32 tanh on the CPU by a rational
+# approximation whose input is clamped to +-TANH_SAT, where it is exactly
+# +-1; torch's tanh reaches 1 only near 9.  Boxplus turns the last ulps
+# below 1 into LLR differences of order 1 through atanh, so the slot-major
+# tanh rule saturates where the reference frameworks do.
+TANH_SAT = 7.90531110763549805
 
 # phi formulations:
 # "expm1"    (default): softplus(x) - log(expm1(x));
@@ -60,6 +72,68 @@ def phi(x, impl: str | None = None):
 def _sign_no_zero(msg):
     """Sign with 0 -> +1."""
     return torch.where(msg < 0, -1.0, 1.0)
+
+
+def cn_update_phi(msg_cn, syndrome_pm, mask, phi_impl: str | None = None):
+    """Extrinsic boxplus via the phi function.
+
+    msg_cn      : [dc, c_pad, B] float32 (pad slots hold 0)
+    syndrome_pm : [c_pad, B] float32 in {+1,-1}
+    mask        : [dc, c_pad] float32 in {0,1}
+    phi_impl    : explicit phi formulation (None = the module default)
+    """
+    m = mask[:, :, None]
+    sign_val = torch.where(m > 0, _sign_no_zero(msg_cn), 1.0)
+    sign_node = torch.prod(sign_val, dim=0) * syndrome_pm  # [c_pad, B]
+    sign_out = sign_val * sign_node[None]
+
+    p = phi(msg_cn.abs(), phi_impl) * m  # pad slots -> 0 contribution
+    ext = torch.sum(p, dim=0)[None] - p
+    return sign_out.detach() * phi(ext, phi_impl) * m
+
+
+def _tanh_sat(x):
+    """tanh, exactly +-1 from |x| = TANH_SAT on."""
+    return torch.where(x.abs() >= TANH_SAT, torch.sign(x), torch.tanh(x))
+
+
+def cn_update_tanh(msg_cn, syndrome_pm, mask):
+    """Extrinsic boxplus via tanh products (saturating tanh, see TANH_SAT)."""
+    m = mask[:, :, None]
+    t = _tanh_sat(msg_cn / 2.0)
+    t = torch.where(t == 0.0, 1e-12, t)
+    t = torch.where(m > 0, t, 1.0)  # pad slots neutral in the product
+    prod = torch.prod(t, dim=0) * syndrome_pm  # [c_pad, B]
+    out = t**-1 * prod[None]
+    out = torch.where(out.abs() < 1e-7, 0.0, out)
+    out = out.clamp(-ATANH_CLIP, ATANH_CLIP)
+    return 2.0 * torch.atanh(out) * m
+
+
+def cn_update_minsum(msg_cn, syndrome_pm, mask):
+    """Extrinsic normalized min-sum with duplicate-min detection."""
+    m = mask[:, :, None]
+    msg = msg_cn.clamp(-LLR_MAX, LLR_MAX)
+
+    sign_val = torch.where(m > 0, _sign_no_zero(msg), 1.0)
+    sign_node = torch.prod(sign_val, dim=0) * syndrome_pm
+    sign_out = sign_val.detach() * sign_node[None]
+
+    amsg_valid = torch.where(m > 0, msg.abs(), _LARGE_VAL)
+    min1 = amsg_valid.amin(dim=0, keepdim=True)  # [1, c_pad, B]
+    is_min = (amsg_valid == min1) & (m > 0)
+    min2 = torch.where(is_min, _LARGE_VAL, amsg_valid).amin(dim=0, keepdim=True)
+    double_min = is_min.to(torch.float32).sum(dim=0, keepdim=True) >= 2.0
+    min_e = torch.where(double_min, min1, min2)
+    out_abs = torch.where(is_min, min_e, min1)
+    return sign_out * out_abs * m
+
+
+CN_UPDATES = {
+    "boxplus-phi": cn_update_phi,
+    "boxplus": cn_update_tanh,
+    "minsum": cn_update_minsum,
+}
 
 
 def boxplus_rows(vals, rowset, phi_impl: str | None = None):

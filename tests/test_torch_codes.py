@@ -80,8 +80,14 @@ def test_graph_to_device_makes_tensors():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys\n"
-        "import feedback_gnn_tpu_torch, feedback_gnn_tpu_torch.entry\n"
+        "import importlib, pkgutil, sys\n"
+        "import feedback_gnn_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in ['entry', 'models', 'sim.metrics', 'channels.bsc', 'decoders.bp2',\n"
+        "             'decoders.bp2_qc', 'decoders.graph_ops', 'decoders.bp4']:\n"
+        "    assert pkg.__name__ + '.' + name in mods, name\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'feedback_gnn_tpu' or m.startswith('feedback_gnn_tpu.')]\n"
         "assert not bad, bad\n"
