@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from feedback_gnn_tpu_torch/csrc with one
-nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode), holds each
-against its plain PyTorch version on the card, and drives the paths that
-run them or their neighbours: the [[882,24]] sandwich cascade of
-feedback_gnn_tpu_torch.entry and the [[1270,28]] compacted workload of
-bench.py (K1); the binary BSC evaluation step on [[882,24]]'s hx (K2); the
-plain gather BP4 step on [[882,24]] (no kernel).  Each path is checked
-against a published error rate, with every kernel's launch count set to 0
-just before it and read just after.  Prints each phase's seconds, the
-card's name and power limit, one JSON line describing every kernel, and as
-its last line {"ok": true, "device": {...}}.  Exits non-zero, with no
+nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode; the three
+probe kernels of csrc/probes.cu), holds each against its plain PyTorch
+version on the card, and drives the paths that run them or their
+neighbours: the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
+and the [[1270,28]] compacted workload of bench.py (K1); the binary BSC
+evaluation step on [[882,24]]'s hx (K2); the plain gather BP4 step on
+[[882,24]] (no kernel); feedback_gnn_tpu_torch.probes.main(), the
+thirteen probes of scripts/probe_pallas*.py.  Each decoding path is checked
+against a published error rate, each probe against its plain version, with
+every kernel's launch count set to 0 just before a path and read just
+after.  Prints each phase's seconds, the card's name and power limit, one
+JSON line describing every kernel, and as its last line
+{"ok": true, "device": {...}}.  Exits non-zero, with no
 result line, when there is no CUDA card or any phase fails.  Imports no
 JAX.
 """
@@ -77,6 +80,17 @@ CN_OPS_PER_EDGE = {
 K2_VN_OPS_PER_EDGE = 2  # add to the total, subtract for the extrinsic
 H100_F32_OPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3, H100 SXM data sheet
+# shared memory of all SMs: 128 B per clock per SM x 132 SMs x 1.98 GHz
+# (the boost clock), for the loop probes' on-chip bound
+H100_SMEM_BYTES = 128 * 132 * 1.98e9
+
+# The probes: back-to-back calls per timing, and float32 operations per
+# element of each phi form (transcendentals counted as one each, as for K1)
+PROBE_REPS, PROBE_PLAIN_REPS = 200, 20
+PHI_OPS = {"phi_softplus_expm1": 10, "phi_log_tanh": 6, "phi_exp_log1p": 10}
+# shared-memory bytes per element and iteration of the loops (csrc/probes.cu's
+# resident_iterations): the element read and written, and a gather's index read
+LOOP_SMEM_BYTES = {"gather_loop": 12, "take_along_loop": 12, "roll_loop": 8}
 
 
 def phase(name, t0):
@@ -111,15 +125,26 @@ def k2_bound_ms(spec, batch, iters, cn_type):
 
 
 def reset_counts():
+    from feedback_gnn_tpu_torch import probes
     from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
 
     bp4_qc.launches = bp2_qc.launches = 0
+    for name in probes.launches:
+        probes.launches[name] = 0
 
 
 def read_counts():
+    from feedback_gnn_tpu_torch import probes
     from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
 
-    return {"K1": bp4_qc.launches, "K2": bp2_qc.launches}
+    return {"K1": bp4_qc.launches, "K2": bp2_qc.launches, **probes.launches}
+
+
+def expected_counts(**launched):
+    """Every kernel's count 0 but those named."""
+    counts = dict.fromkeys(read_counts(), 0)
+    counts.update(launched)
+    return counts
 
 
 def random_inputs(qc, batch, device, seed):
@@ -138,6 +163,27 @@ def time_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean milliseconds of fn() on the card with the host's launch overhead
+    taken out: reps calls captured into one CUDA graph, whose replay is timed
+    by CUDA events (after a warm-up call and a warm-up replay).  The card's
+    own gap between launches stays in."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -310,6 +356,135 @@ def bench_step(graph, qc, params, batch):
     return cfg, step
 
 
+def probe_library(p):
+    """The one PyTorch call that computes the probe's function, as a thunk
+    on its inputs (index tables widened to int64 beforehand), or None."""
+    from feedback_gnn_tpu_torch.probes import ROLL_SHIFT
+
+    a = p.args
+    if p.name in ("take_rows", "index_rows"):
+        return lambda: torch.index_select(a[0], 0, a[1])
+    if p.name == "take_lanes":
+        return lambda: torch.index_select(a[0], 1, a[1])
+    if p.name in ("take_along_lanes", "take_along_rows"):
+        dim, idx = (1 if p.name == "take_along_lanes" else 0), a[1].long()
+        return lambda: torch.gather(a[0], dim, idx)
+    if p.name == "roll_rows":
+        return lambda: torch.roll(a[0], ROLL_SHIFT, 0)
+    return None
+
+
+def probe_bounds_ms(p, out):
+    """The probe's least time on an H100, (ms, by, memory), the largest of:
+    its inputs read once and its output written once over the memory rate;
+    its float32 operations (one multiply per element and iteration in the
+    loops, phi's PHI_OPS) over the f32 rate; and for the loops the bytes
+    each iteration moves through shared memory (LOOP_SMEM_BYTES) over its
+    rate.  ``memory`` names the memory whose bytes bind, None if operations
+    do."""
+    nbytes = sum(t.numel() * t.element_size() for t in p.args if torch.is_tensor(t))
+    nbytes += out.numel() * out.element_size()
+    ops = out.numel() * (PHI_OPS.get(p.name, 0) + (p.iters if p.iters > 1 else 0))
+    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
+    t_smem = p.iters * LOOP_SMEM_BYTES.get(p.name, 0) * out.numel() / H100_SMEM_BYTES
+    t = max(t_bytes, t_ops, t_smem)
+    if t == t_ops:
+        return 1e3 * t, "operations", None
+    return 1e3 * t, "bytes", ("shared memory" if t == t_smem else "device memory")
+
+
+def loop_bank_probe(p, per_iter_us, card):
+    """k6 on the identity permutation beside k6 on its random one: thread r
+    reads row r, 32 banks for 32 threads, where a random permutation sends
+    several threads of a warp to one bank.  Same index read, same
+    instructions; the difference per iteration is what the bank conflicts
+    cost.  Checked against the plain version, timed, printed."""
+    from feedback_gnn_tpu_torch import probes
+
+    x = p.args[0]
+    ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    out, ref = probes.gather_loop(x, ident), probes.gather_loop_plain(x, ident)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("k6 on the identity permutation disagrees with its plain version")
+    full_ms = graph_ms(lambda: probes.gather_loop(x, ident), reps=PROBE_REPS)
+    two_ms = graph_ms(lambda: probes.gather_loop(x, ident, iters=2), reps=PROBE_REPS)
+    ident_us = (full_ms - two_ms) / (p.iters - 2) * 1e3
+    print(f"  {p.key} on the identity permutation: {full_ms:.5f} ms per call; each further "
+          f"iteration {ident_us:.4f} us against {per_iter_us:.4f} us on the random one on {card}")
+
+
+def run_probes(device, card):
+    """probes.main(), the entry point of the Pallas probe scripts' port, with
+    the launch counts reset just before and read just after; then each probe
+    against its plain version, the kernel's, the plain version's and the
+    library call's times, the bounds, and for phi the fast transcendentals.
+    Returns the probes' rows of the kernels line."""
+    from feedback_gnn_tpu_torch import probes
+
+    reset_counts()
+    probes.main(device)
+    torch.cuda.synchronize()
+    probe_counts = read_counts()
+    print(f"probes launches={probe_counts}")
+    if any(probe_counts[nm] < 1 for nm in probes.WRAPPERS) or probe_counts["K1"] or probe_counts["K2"]:
+        raise AssertionError(f"kernel launches {probe_counts} in probes.main()")
+    probe_rows = []
+    for p in probes.probe_cases(probes.probe_inputs(device)):
+        out = p.fn(*p.args)
+        ref = p.plain(*p.args)
+        torch.cuda.synchronize()
+        err = probes.compare(p, out, ref)
+        # these calls take microseconds on the card, less than the host
+        # spends launching them: time them in CUDA graphs, and show the
+        # host-paced time of back-to-back eager calls beside
+        k_ms = graph_ms(lambda: p.fn(*p.args), reps=PROBE_REPS)
+        eager_ms = time_ms(lambda: p.fn(*p.args), reps=PROBE_REPS)
+        pl_ms = graph_ms(lambda: p.plain(*p.args), reps=PROBE_PLAIN_REPS)
+        lib = probe_library(p)
+        lib_ms = None
+        if lib is not None:
+            if not torch.equal(lib(), ref):
+                raise AssertionError(f"{p.key}: the library call disagrees with the plain version")
+            lib_ms = graph_ms(lib, reps=PROBE_REPS)
+        b_ms, b_by, b_mem = probe_bounds_ms(p, out)
+        print(f"probe {p.key} {p.name} {list(p.args[0].shape)}: max_abs_err={err:.3e} "
+              f"kernel {k_ms:.5f} ms (eager back to back {eager_ms:.5f} ms), plain {pl_ms:.5f} ms, "
+              "library " + (f"{lib_ms:.5f} ms" if lib_ms is not None else "none")
+              + f", bound {b_ms:.5f} ms ({b_by}" + (f" through {b_mem}" if b_mem else "")
+              + f") on {card}", flush=True)
+        if p.iters > 1:  # the loops: what one more iteration on chip costs (a
+            # single pass takes another route, so the yardstick is two)
+            two_ms = graph_ms(lambda: p.fn(*p.args, iters=2), reps=PROBE_REPS)
+            per_iter_us = (k_ms - two_ms) / (p.iters - 2) * 1e3
+            print(f"  {p.key} two iterations per call: {two_ms:.5f} ms; each further iteration "
+                  f"{per_iter_us:.4f} us, on-chip bound {b_ms / p.iters * 1e3:.4f} us on {card}")
+            if p.name == "gather_loop":
+                loop_bank_probe(p, per_iter_us, card)
+        if not p.exact:  # phi: the fast transcendentals, timed and held to float64
+            f_ms = graph_ms(lambda: p.fn(*p.args, fast=True), reps=PROBE_REPS)
+            ref64 = probes.phi_reference(p.args[0])
+            acc_err = float((out.double() - ref64).abs().max())
+            fast_err = float((p.fn(*p.args, fast=True).double() - ref64).abs().max())
+            print(f"  {p.key} fast transcendentals: {f_ms:.5f} ms against {k_ms:.5f} ms; max abs error "
+                  f"against float64 phi: accurate {acc_err:.3e}, fast {fast_err:.3e} on {card}")
+        probe_rows.append({
+            "name": p.name,
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/probes.cu",
+            "replaces": p.replaces,
+            "launches": probe_counts[p.name],
+            "max_abs_err": err,
+            "ms": k_ms,
+            "plain_ms": pl_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_memory": b_mem,
+            "library_ms": lib_ms,
+        })
+    return probe_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -379,7 +554,7 @@ def main() -> int:
           f"LER={ler:.5f} ref={LER_REF} ({abs(ler - LER_REF) / sigma:.2f} sigma) launches={counts}")
     if abs(ler - LER_REF) >= LER_SIGMAS * sigma:
         raise AssertionError(f"LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
-    if counts != {"K1": LER_STEPS * (1 + 3), "K2": 0}:
+    if counts != expected_counts(K1=LER_STEPS * (1 + 3)):
         raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, K2=0")
     rates, step_ms, _ = timed_windows(fn, (gen, 0.08), 256)
     main_ms = report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
@@ -403,7 +578,7 @@ def main() -> int:
           f"launches={launches_b}")
     if overflow != 0:
         raise AssertionError(f"compaction overflow {overflow}")
-    if launches_b != {"K1": len(counts) * (2 + cfg.num_rounds), "K2": 0}:
+    if launches_b != expected_counts(K1=len(counts) * (2 + cfg.num_rounds)):
         raise AssertionError(f"kernel launches {launches_b} in {len(counts)} bench steps")
     phase("bench", t0)
 
@@ -454,7 +629,7 @@ def main() -> int:
     check_rate(f"bp2_path [[882,24]] hx BSC p={BP2['p']} {BP2['cn_type']} f={BP2['factor']} "
                f"x{BP2['iters']} B={BP2['batch']}", flagged2, BP2["steps"] * BP2["batch"],
                BP2["ref"], BP2["tf"])
-    if counts != {"K1": 0, "K2": BP2["steps"]}:
+    if counts != expected_counts(K2=BP2["steps"]):
         raise AssertionError(f"kernel launches {counts} in {BP2['steps']} bp2_path steps")
     rates, step_ms, _ = timed_windows(bp2_step, (gen, BP2["p"]), BP2["batch"])
     bp2_ms = report_rate(f"bp2_path throughput [[882,24]] hx B={BP2['batch']} p={BP2['p']}",
@@ -505,7 +680,12 @@ def main() -> int:
           f"plain {k2_plain_ms:.4f} ms, bound {k2_b_ms:.5f} ms ({k2_b_by}) on {card}")
     phase("k2_timing", t0)
 
-    # 10. where a step's device time goes
+    # 10. the probes of scripts/probe_pallas*.py
+    t0 = time.perf_counter()
+    probe_rows = run_probes(device, card)
+    phase("probes", t0)
+
+    # 11. where a step's device time goes
     t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
     profile_step(f"bench [[1270,28]] B={BENCH['batch']} p={BENCH['p']}", step, (gen, BENCH["p"]),
@@ -544,6 +724,7 @@ def main() -> int:
             "bound_by": k2_b_by,
             "library_ms": None,
         },
+        *probe_rows,
     ]}
     print(f"phase total: {time.perf_counter() - t_all:.2f} s")
     print(card)

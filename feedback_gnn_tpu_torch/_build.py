@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use, one ``nvcc`` compiles every ``csrc/*.cu`` (K1 ``bp4_qc.cu``
-and K2 ``bp2_qc.cu``, which share ``qc_common.cuh``) into a shared library
+and K2 ``bp2_qc.cu``, which share ``qc_common.cuh``, and the probe kernels
+of ``probes.cu``) into a shared library
 with a plain C interface, which ``ctypes`` loads.  No PyTorch
 headers are involved, so the build takes seconds.  The library goes into
 ``_build/`` beside this file (listed in .gitignore), named by a hash of the
@@ -93,6 +94,12 @@ def load_kernels() -> ctypes.CDLL:
     dll.fgt_bp4_qc_launch.restype = i
     dll.fgt_bp2_qc_launch.argtypes = [p, p, p, p] + [i] * 10 + [ctypes.c_float, i, i, p]
     dll.fgt_bp2_qc_launch.restype = i
+    dll.fgt_probe_gather_launch.argtypes = [p, p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]
+    dll.fgt_probe_gather_launch.restype = i
+    dll.fgt_probe_shift_launch.argtypes = [p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]
+    dll.fgt_probe_shift_launch.restype = i
+    dll.fgt_probe_phi_launch.argtypes = [p, p] + [i] * 4 + [p]
+    dll.fgt_probe_phi_launch.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

@@ -20,6 +20,9 @@ constexpr float PHI_CLIP_MAX = 16.635532f;
 constexpr float ATANH_CLIP = 0.9999999f;  // 1 - 1e-7 rounded to float
 constexpr float LLR_MAX = 20.0f;
 constexpr float LARGE_VAL = 10000.0f;
+// float32 tanh is exactly +-1 from |x| = TANH_SAT on, as XLA's and TF's
+// are; the same constant as cn_update.TANH_SAT on the Python side
+constexpr float TANH_SAT = 7.90531110763549805f;
 constexpr int MAX_DEG = 8;  // the wrapper rejects codes with larger degrees
 
 enum { CN_PHI = 0, CN_TANH = 1, CN_MINSUM = 2 };
@@ -115,7 +118,8 @@ __device__ void cn_node(float* msg, const Side& s, int l, int i, int r, float sy
 #pragma unroll
     for (int k = 0; k < MAX_DEG; ++k) {
       if (k < deg) {
-        t[k] = tanhf(v[k] * 0.5f);
+        const float h = v[k] * 0.5f;
+        t[k] = fabsf(h) >= TANH_SAT ? copysignf(1.0f, h) : tanhf(h);
         if (t[k] == 0.0f) t[k] = 1e-12f;
         tprod = (k == 0) ? t[k] : tprod * t[k];
       }

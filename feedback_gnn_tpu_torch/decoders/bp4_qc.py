@@ -17,7 +17,8 @@ Numerics are those of the JAX kernel:
 * VN update: Y-coupled log-space extrinsics, VN sums in ``vn_groups`` order;
 * CN update: boxplus-phi with the syndrome sign in the node product (phi in
   the tanh form -log(tanh(x/2)) for ``phi_impl`` None or "expm1"; "tf" and
-  "accurate" as in decoders/cn_update.py), boxplus (tanh products), or
+  "accurate" as in decoders/cn_update.py), boxplus (tanh products, the
+  tanh saturated at cn_update.TANH_SAT), or
   minsum with duplicate-min detection; the result is scaled by ``factor``;
 * softplus without threshold, sign(0) = +1.
 """
@@ -32,7 +33,9 @@ import torch
 
 from ..codes.qc import QCGraphSpec, QCPair
 from .bp4 import BP4Result, _cal_logit, hard_decision
-from .cn_update import ATANH_CLIP, LLR_MAX, PHI_CLIP_MAX, PHI_CLIP_MIN, _LARGE_VAL, softplus
+from .cn_update import (
+    ATANH_CLIP, LLR_MAX, PHI_CLIP_MAX, PHI_CLIP_MIN, _LARGE_VAL, _tanh_sat, softplus,
+)
 
 __all__ = ["bp4_qc_marginals", "bp4_qc_marginals_plain", "bp4_decode_qc", "qc_supported", "launches"]
 
@@ -134,7 +137,7 @@ def _cn_plain(msg, syn_pm, side: _SideIndex, cn_type, factor, phi_impl):
                 psum = psum + ps[:, k]
             res = signs * sprod[:, None] * _phi_plain(psum[:, None] - ps, phi_impl) * factor
         elif cn_type == "boxplus":
-            ts = torch.tanh(m * 0.5)
+            ts = _tanh_sat(m * 0.5)  # +-1 from TANH_SAT on, as XLA and TF give
             ts = torch.where(ts == 0.0, 1e-12, ts)
             tprod = ts[:, 0]
             for k in range(1, d):

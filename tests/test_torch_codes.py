@@ -84,7 +84,7 @@ def test_port_imports_no_jax():
         "import feedback_gnn_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in ['entry', 'models', 'sim.metrics', 'channels.bsc', 'decoders.bp2',\n"
-        "             'decoders.bp2_qc', 'decoders.graph_ops', 'decoders.bp4']:\n"
+        "             'decoders.bp2_qc', 'decoders.graph_ops', 'decoders.bp4', 'probes']:\n"
         "    assert pkg.__name__ + '.' + name in mods, name\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"

@@ -6,8 +6,10 @@ They import no JAX, so they run on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance rtol = atol = 2e-3 on the marginals, the JAX suite's own for
-kernel-versus-reference marginals; the TF golden is held at
-tests/test_bp4_parity.py's tolerances.
+kernel-versus-reference marginals; the TF goldens are held at
+tests/test_bp4_parity.py's tolerances.  The probe kernels
+(feedback_gnn_tpu_torch/probes.py) must equal their plain versions bit for
+bit, phi within rtol = atol = 1e-5 (probes.PHI_TOL).
 """
 
 import numpy as np
@@ -15,8 +17,10 @@ import pytest
 import torch
 
 import feedback_gnn_tpu_torch.codes as tc
+from feedback_gnn_tpu_torch import probes
 from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
 from test_bp4_parity import assert_llr_parity, load_case
+from test_torch_qc_golden import QC_GOLDENS, check_qc_golden
 
 CODES = {
     "gb48": lambda: tc.create_generalized_bicycle_codes(24, [0, 2, 8, 15], [0, 2, 12, 17]),
@@ -93,3 +97,113 @@ def test_bp2_qc_kernel_matches_tf_golden(card):
     torch.cuda.synchronize()
     assert_llr_parity(out.cpu().numpy(), d["logits"].T, True, "bp2_gb48_minsum8 on K2",
                       llr_mask_level=10.0, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QC_GOLDENS)
+def test_bp4_qc_kernel_matches_tf_golden(card, case):
+    before = bp4_qc.launches
+    check_qc_golden(case, card)
+    assert bp4_qc.launches == before + 1
+
+
+def _probe_cases(device):
+    return {p.key: p for p in probes.probe_cases(probes.probe_inputs(device))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", sorted(_probe_cases("cpu")))
+def test_probe_kernel_matches_plain(card, key):
+    p = _probe_cases(card)[key]
+    before = probes.launches[p.name]
+    out = p.fn(*p.args)
+    assert probes.launches[p.name] == before + 1
+    ref = p.plain(*p.args)
+    torch.cuda.synchronize()
+    assert out.is_cuda
+    probes.compare(p, out, ref)
+
+
+# ragged shapes: rows not a multiple of a warp, an odd column count, and a
+# short, wide array (two rows, a block of one warp for each of 300000 columns)
+RAGGED = [(1000, 37), (300, 531), (2, 300000)]
+
+
+def _ragged_inputs(card, rows, cols, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((rows, cols), generator=g, device=card)
+    perm = torch.randperm(rows, generator=g, device=card).to(torch.int32)
+    idx = torch.randint(0, rows, (rows, cols), generator=g, device=card).to(torch.int32)
+    return x, perm, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", RAGGED)
+def test_probe_gather_kernel_ragged(card, rows, cols):
+    x, perm, idx = _ragged_inputs(card, rows, cols, 6)
+    xt = x.T.contiguous()  # the gathered axis in lanes
+    permt = torch.randperm(cols, device=card).to(torch.int32)
+    cases = [
+        (probes.take_rows, probes.take_rows_plain, (x, perm)),
+        (probes.index_rows, probes.index_rows_plain, (x, perm)),
+        (probes.take_along_rows, probes.take_along_rows_plain, (x, idx)),
+        (probes.take_lanes, probes.take_lanes_plain, (x, permt)),
+        (probes.take_along_lanes, probes.take_along_lanes_plain, (xt, idx.T.contiguous())),
+        (probes.gather_loop, probes.gather_loop_plain, (x, perm, 5)),
+        (probes.gather_loop, probes.gather_loop_plain, (x, perm, 2)),
+        (probes.take_along_loop, probes.take_along_loop_plain, (x, idx, 5)),
+        (probes.take_along_loop, probes.take_along_loop_plain, (x, idx, 2)),
+    ]
+    for fn, plain, args in cases:
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (fn.__name__, args[2:])
+
+
+def _shift_plain(x, shift, length, iters, scale):
+    """out[i] = x[(i + shift) mod length] for i < length, x[i] past it;
+    ``iters`` times, each times ``scale``."""
+    acc = x
+    for _ in range(iters):
+        acc = torch.cat([torch.roll(acc[:length], -shift, 0), acc[length:]]) * scale
+    return acc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", RAGGED)
+def test_probe_shift_kernel_ragged(card, rows, cols):
+    x, _, _ = _ragged_inputs(card, rows, cols, 7)
+    cases = [
+        (probes.roll_rows, probes.roll_rows_plain, (x,)),
+        (probes.roll_loop, probes.roll_loop_plain, (x, 5)),
+        (probes.roll_loop, probes.roll_loop_plain, (x, 2)),
+    ]
+    if rows >= probes.CIRC_LEN:
+        cases.append((probes.circulant_copy, probes.circulant_copy_plain, (x,)))
+    for fn, plain, args in cases:
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (fn.__name__, args[1:])
+    # the shift kernel at other shifts, lengths and scales than the probes'
+    for shift, length, iters, scale in [(-(rows + 5), rows, 1, 1.0), (3, max(1, rows // 3), 1, 1.0),
+                                        (13, max(1, rows - 1), 1, 1.0), (7, rows, 5, 1.0001),
+                                        (5, max(1, rows // 2), 3, 0.5)]:
+        out = probes._launch_shift("roll_loop", x, shift, length, iters, scale)
+        ref = _shift_plain(x, shift, length, iters, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (shift, length, iters, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", [probes.phi_softplus_expm1, probes.phi_log_tanh, probes.phi_exp_log1p],
+                         ids=lambda f: f.__name__)
+def test_probe_phi_fast_mode(card, fn):
+    """The fast transcendentals run and stay near phi; their error is
+    reported by chip_smoke.py, not held to a tolerance."""
+    x = probes.probe_inputs(card)["x_sub"]
+    before = probes.launches[fn.__name__]
+    out = fn(x, fast=True)
+    torch.cuda.synchronize()
+    assert probes.launches[fn.__name__] == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert float((out.double() - probes.phi_reference(x)).abs().max()) < 1.0
