@@ -25,6 +25,9 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,9 +46,8 @@ LER_P, LER_REF, LER_SIGMAS, LER_STEPS = 0.12, 7.92e-2, 4.5, 16  # 16 x 256 = 409
 WINDOWS, WINDOW_S = 5, 1.0
 # bench.py's workload
 BENCH = dict(batch=20480, p=0.05)
-# kernel against plain version: rtol = atol = 2e-3 on the marginals, the
-# JAX suite's own tolerance for kernel-versus-reference marginals
-RTOL = ATOL = 2e-3
+# K1 and K2 against their plain versions: bit for bit (the plain versions
+# repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
 CASES = [
     ("boxplus-phi", None),
@@ -65,6 +67,17 @@ BP4_PLAIN = dict(p=0.10, batch=20480, iters=100, cn_type="minsum", factor=0.8, s
                  ref=0.03477, tf=0.03482)
 K2_CMP_BATCH, K2_CMP_ITERS, K2_CMP_FACTOR = 256, 100, 0.8
 
+# The previous design of K1 and K2 (one 256-thread block per sample,
+# runtime CN rule and degrees), measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md's kernel table): milliseconds at each timed shape, and
+# the seeded counts, which the bit-exact kernels must repeat
+PREVIOUS_K1_MS = {
+    ("n882", 256, 64): 1.4342, ("n882", 256, 16): 0.3942, ("n1270", 20480, 12): 31.8701,
+    ("n1270", 3072, 64): 22.1389, ("n1270", 1024, 16): 2.0402,
+}
+PREVIOUS_K2_MS = 28.9668
+PREVIOUS_COUNTS = {"main path": (300, 4096), "bp2_path": (3143, 61440), "bp4_plain_path": (2139, 61440)}
+GRID_REPS = 10  # calls per plan of the launch-plan grid, in one CUDA graph
 # Work of one decode, for the bound: float32 operations per edge and
 # iteration (transcendentals counted as one each), read off csrc/bp4_qc.cu
 # and csrc/bp2_qc.cu (the CN side is qc_common.cuh's cn_node in both).
@@ -189,6 +202,118 @@ def graph_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def ptxas_registers(report):
+    """{(kernel, template arguments): (registers, spill-store bytes)} of every
+    kernel in nvcc's -Xptxas -v report: K1/K2 instances by name and
+    template arguments, the others by mangled name."""
+    found, current, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            k = re.search(r"(bp[24]_qc_kernel)I((?:Li-?\d+E)+)E", current)
+            key = (k.group(1), tuple(int(x) for x in re.findall(r"Li(-?\d+)E", k.group(2)))) if k else (current, ())
+            found[key] = (int(m.group(1)), spill)
+            current = None
+    return found
+
+
+def sass_counts(library):
+    """SASS instructions (NOPs left out) of each K1/K2 instance in the built
+    library (cuobjdump -sass), cut at its barrier instructions: the load,
+    the VN pass, the CN pass and the final marginals each fall between two
+    BARs.  For each segment: its instructions and MUFU (special-function)
+    instructions, and the same for every loop in it (a backward branch and
+    its target).  The smallest loop of a pass is one node visit with its
+    loop control: nvcc unrolls a node loop into a body of several visits
+    plus a remainder loop of one."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: no cuobjdump in this toolkit")
+        return
+    dump = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
+    for section in re.split(r"\n\s*Function : ", dump)[1:]:
+        k = re.search(r"(bp[24]_qc_kernel)I((?:Li-?\d+E)+)E", section.split("\n", 1)[0])
+        if not k:
+            continue
+        code = []  # (address, opcode, backward-branch target or None)
+        for addr, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", section):
+            op = [t for t in ins.split() if not t.startswith("@")][0]
+            target = re.search(r"BRA\S*\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)
+            back = int(target.group(1), 16) if target and int(target.group(1), 16) < int(addr, 16) else None
+            if op != "NOP":
+                code.append((int(addr, 16), op, back))
+        cuts = [i for i, (_, op, _) in enumerate(code) if op.startswith("BAR")]
+        parts = []
+        for lo, hi in zip([0] + [c + 1 for c in cuts], cuts + [len(code)]):
+            seg = code[lo:hi]
+            loops = sorted(
+                (sum(1 for a, _, _ in seg if back <= a <= addr),
+                 sum(1 for a, o, _ in seg if back <= a <= addr and o.startswith("MUFU")))
+                for addr, _, back in seg if back is not None and back >= (seg[0][0] if seg else 0))
+            mufu = sum(1 for _, o, _ in seg if o.startswith("MUFU"))
+            parts.append(f"{len(seg)}/{mufu}" + (" loops " + ",".join(f"{n}/{m}" for n, m in loops) if loops else ""))
+        args = [int(x) for x in re.findall(r"Li(-?\d+)E", k.group(2))]
+        print(f"  sass {k.group(1)}{args}: instructions/MUFU between barriers: " + " | ".join(parts))
+
+
+def plan_grid(launch_plan, nodes, max_threads):
+    """The plans measured around a shape's chosen one: one
+    sample per block at 1-4 nodes per thread, and 2-8 samples per block at
+    the most threads that fit (and half that at the largest count that fits
+    shared memory).  ``launch_plan(threads, samples_per_block)`` raises for
+    a plan that does not fit."""
+    def up32(x):
+        return -(-x // 32) * 32
+
+    pairs = [(up32(-(-nodes // p)), 1) for p in range(1, 5)]
+    fits = []
+    for spb in range(2, 9):
+        thr = min(up32(nodes), max_threads // spb // 32 * 32)
+        if thr >= 32:
+            pairs.append((thr, spb))
+    plans = []
+    for thr, spb in pairs:
+        try:
+            plans.append(launch_plan(thr, spb))
+            fits.append((thr, spb))
+        except ValueError:
+            pass
+    thr, spb = fits[-1]
+    if thr >= 64:
+        plans.append(launch_plan(thr // 64 * 32, spb))
+    return list(dict.fromkeys(plans))
+
+
+def time_plans(label, plans, chosen, run, ref, card):
+    """Time run(plan) for every plan of the grid in CUDA graphs (the host's
+    launch overhead out, which eager calls of a 0.2 ms kernel do not
+    escape), each held bit for bit to ref; print each and mark the fastest
+    and the one the launch plan chose.  Returns {plan: ms}."""
+    times = {}
+    for plan in plans:
+        out = run(plan)
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, r) for o, r in zip(out, ref)) if isinstance(out, tuple) else torch.equal(out, ref)
+        if not same:
+            raise AssertionError(f"{label}: plan {plan} disagrees with the plain version")
+        del out
+        times[plan] = graph_ms(lambda: run(plan), reps=GRID_REPS)
+    best = min(times, key=times.get)
+    for plan, ms in times.items():
+        mark = (" <- fastest" if plan == best else "") + (" <- chosen" if plan == chosen else "")
+        print(f"  grid {label}: {plan.threads} threads x {plan.samples_per_block} samples per block, "
+              f"{plan.nodes_per_thread} nodes per thread, {plan.smem_bytes} B, planned "
+              f"{plan.blocks_per_sm} blocks per SM: {ms:.4f} ms on {card}{mark}")
+    return times
+
+
 def profile_step(label, step, args, step_ms, card):
     """Device time of one step by kernel name (torch.profiler), and the
     device's busy share against the step's unprofiled wall time."""
@@ -211,12 +336,12 @@ def profile_step(label, step, args, step_ms, card):
 
 def check_against_plain(label, out, ref):
     """Hold K1's marginals against the plain version's; print the largest
-    error and the share of agreeing decisions, raise outside tolerance."""
+    error and the share of agreeing decisions, raise unless bit for bit."""
     from feedback_gnn_tpu_torch.decoders.bp4 import hard_decision
 
     torch.cuda.synchronize()
     err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-    ok = all(bool(((o - r).abs() <= ATOL + RTOL * r.abs()).all()) for o, r in zip(out, ref))
+    ok = all(torch.equal(o, r) for o, r in zip(out, ref))
     xo, zo = hard_decision(*out)
     xr, zr = hard_decision(*ref)
     agree = float(((xo == xr) & (zo == zr)).float().mean())
@@ -257,11 +382,11 @@ def bsc_inputs(hx, batch, p, device, seed):
 
 def check_k2(label, out, ref):
     """Hold K2's marginal logits against the plain version's; print the
-    largest error and the share of agreeing decisions, raise outside
-    tolerance."""
+    largest error and the share of agreeing decisions, raise unless bit for
+    bit."""
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    ok = bool(((out - ref).abs() <= ATOL + RTOL * ref.abs()).all())
+    ok = torch.equal(out, ref)
     agree = float(((out > 0) == (ref > 0)).float().mean())
     print(f"  K2 vs plain {label}: max_abs_err={err:.3e} decisions_agree={agree:.6f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -286,6 +411,14 @@ def compare_k2(specs, device):
             label = f"{name} hx B={K2_CMP_BATCH} iters={K2_CMP_ITERS} {cn_type} f={K2_CMP_FACTOR}"
             worst = max(worst, check_k2(label, bp2_qc_logits(*args), bp2_qc_logits_plain(*args)))
     return worst
+
+
+def same_counts(label, count, samples):
+    """Print whether a seeded count repeats the previous design's (the
+    kernels are bit exact, so on the same software it should)."""
+    before = PREVIOUS_COUNTS[label]
+    print(f"{label} seeded count {count}/{samples}: previous design {before[0]}/{before[1]}, "
+          f"{'the same' if (count, samples) == before else 'DIFFERENT'}")
 
 
 def check_rate(label, flagged, samples, ref, tf):
@@ -514,9 +647,10 @@ def main() -> int:
     _build.load_kernels()
     info = _build.build_info
     print(f"build: nvcc {'ran' if info['built'] else 'cached'} in {info['seconds']:.2f} s -> {info['library']}")
-    for line in info["ptxas"].splitlines():
-        if "ptxas" in line or "Used" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    registers = ptxas_registers(info["ptxas"])
+    for (kernel, args), (regs, spill) in sorted(registers.items()):
+        print(f"  registers {kernel}{list(args)}: {regs}, spill stores {spill} B")
+    sass_counts(info["library"])
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -554,6 +688,7 @@ def main() -> int:
           f"LER={ler:.5f} ref={LER_REF} ({abs(ler - LER_REF) / sigma:.2f} sigma) launches={counts}")
     if abs(ler - LER_REF) >= LER_SIGMAS * sigma:
         raise AssertionError(f"LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
+    same_counts("main path", logical, samples)
     if counts != expected_counts(K1=LER_STEPS * (1 + 3)):
         raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, K2=0")
     rates, step_ms, _ = timed_windows(fn, (gen, 0.08), 256)
@@ -597,15 +732,32 @@ def main() -> int:
     for nm, batch, iters in shapes:
         qc_s = codes[nm][1]
         llr, sx, sz = random_inputs(qc_s, batch, device, seed=2)
+        plan = bp4_qc._launch_plan(qc_s, batch)
+        blocks, regs, spill = bp4_qc._occupancy(qc_s, "boxplus-phi", None, plan)
+        key = ("bp4_qc_kernel", bp4_qc._kernel_codes("boxplus-phi", None, plan.instance))
+        print(f"K1 {nm} B={batch} iters={iters}: instance (DC, DV)={plan.instance} boxplus-phi, "
+              f"{plan.regime} batch: {plan.threads} threads x {plan.samples_per_block} samples per "
+              f"block ({plan.blocks(batch)} blocks), {plan.nodes_per_thread} nodes per thread, "
+              f"{plan.smem_bytes} B shared; resident blocks per SM {blocks} (planned "
+              f"{plan.blocks_per_sm}); registers {regs} (ptxas {registers.get(key)}), local {spill} B")
         out = bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters)
         k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters), reps=10)
         ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters)
         max_err = max(max_err, check_against_plain(f"{nm} B={batch} iters={iters}", out, ref))
-        del out, ref
+        del out
+        grid = time_plans(
+            f"K1 {nm} B={batch} iters={iters}",
+            plan_grid(lambda t, spb: bp4_qc._launch_plan(qc_s, batch, t, spb),
+                      max(qc_s.n, (qc_s.qx.mb + qc_s.qz.mb) * qc_s.l), bp4_qc.K1_MAX_THREADS),
+            plan, lambda p: bp4_qc._launch_kernel(qc_s, llr, sx, sz, iters, "boxplus-phi", 1.0, None, p),
+            ref, card)
+        del ref
         p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters), reps=2)
         b_ms, b_by = k1_bound_ms(qc_s, batch, iters)
         timing[(nm, batch, iters)] = (k_ms, p_ms, b_ms, b_by)
-        print(f"K1 {nm} B={batch} iters={iters}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        old = PREVIOUS_K1_MS[(nm, batch, iters)]
+        print(f"K1 {nm} B={batch} iters={iters}: kernel {k_ms:.4f} ms (previous design {old:.4f} ms, "
+              f"ratio {k_ms / old:.3f}; in a CUDA graph {grid[plan]:.4f} ms), plain {p_ms:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by}) on {card}")
     phase("k1_timing", t0)
 
@@ -626,6 +778,7 @@ def main() -> int:
     flagged2 = sum(int(o[0]) for o in outs)
     logical2 = sum(int(o[1]) for o in outs)
     print(f"bp2_path launches={counts}; logical={logical2}")
+    same_counts("bp2_path", flagged2, BP2["steps"] * BP2["batch"])
     check_rate(f"bp2_path [[882,24]] hx BSC p={BP2['p']} {BP2['cn_type']} f={BP2['factor']} "
                f"x{BP2['iters']} B={BP2['batch']}", flagged2, BP2["steps"] * BP2["batch"],
                BP2["ref"], BP2["tf"])
@@ -657,6 +810,7 @@ def main() -> int:
         logical4 += int(lg)
         torch.cuda.synchronize()
         bp4_step_ms.append((time.perf_counter() - t1) * 1e3)
+    same_counts("bp4_plain_path", flagged4, BP4_PLAIN["steps"] * BP4_PLAIN["batch"])
     print(f"bp4_plain_path launches={read_counts()}; logical={logical4}; ms per step "
           + ", ".join(f"{t:.3f}" for t in bp4_step_ms) + f" on {card}")
     check_rate(f"bp4_plain_path [[882,24]] p={BP4_PLAIN['p']} {BP4_PLAIN['cn_type']} "
@@ -669,15 +823,32 @@ def main() -> int:
     t0 = time.perf_counter()
     from feedback_gnn_tpu_torch.decoders.bp2_qc import bp2_qc_logits, bp2_qc_logits_plain
 
+    from feedback_gnn_tpu_torch.decoders import bp2_qc
+
     llr, syn = bsc_inputs(hx, BP2["batch"], BP2["p"], device, seed=7)
     k2_args = (spec882, llr, syn, BP2["iters"], BP2["cn_type"], BP2["factor"])
+    plan = bp2_qc._launch_plan(spec882, BP2["batch"], BP2["cn_type"])
+    blocks, regs, spill = bp2_qc._occupancy(spec882, BP2["cn_type"], plan)
+    key = ("bp2_qc_kernel", (bp2_qc.CN_TYPES.index(BP2["cn_type"]),) + plan.instance)
+    label = f"K2 n882 hx B={BP2['batch']} iters={BP2['iters']} {BP2['cn_type']}"
+    print(f"{label}: instance (DC, DV)={plan.instance}, {plan.regime} batch: {plan.threads} threads x "
+          f"{plan.samples_per_block} samples per block ({plan.blocks(BP2['batch'])} blocks), "
+          f"{plan.nodes_per_thread} nodes per thread, {plan.smem_bytes} B shared; resident blocks per "
+          f"SM {blocks} (planned {plan.blocks_per_sm}); registers {regs} (ptxas {registers.get(key)}), "
+          f"local {spill} B")
     k2_ms = time_ms(lambda: bp2_qc_logits(*k2_args), reps=10)
-    k2_err = max(k2_err, check_k2(f"n882 hx B={BP2['batch']} iters={BP2['iters']} {BP2['cn_type']}",
-                                  bp2_qc_logits(*k2_args), bp2_qc_logits_plain(*k2_args)))
+    ref = bp2_qc_logits_plain(*k2_args)
+    k2_err = max(k2_err, check_k2(label, bp2_qc_logits(*k2_args), ref))
+    grid = time_plans(label, plan_grid(lambda t, spb: bp2_qc._launch_plan(spec882, BP2["batch"], BP2["cn_type"], t, spb),
+                                spec882.nb * spec882.l, bp2_qc.K2_MAX_THREADS),
+               plan, lambda p: bp2_qc._launch_kernel(spec882, llr, syn, BP2["iters"], BP2["cn_type"],
+                                                     BP2["factor"], p), ref, card)
+    del ref
     k2_plain_ms = time_ms(lambda: bp2_qc_logits_plain(*k2_args), reps=2)
     k2_b_ms, k2_b_by = k2_bound_ms(spec882, BP2["batch"], BP2["iters"], BP2["cn_type"])
-    print(f"K2 n882 hx B={BP2['batch']} iters={BP2['iters']} {BP2['cn_type']}: kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms, bound {k2_b_ms:.5f} ms ({k2_b_by}) on {card}")
+    print(f"{label}: kernel {k2_ms:.4f} ms (previous design {PREVIOUS_K2_MS:.4f} ms, ratio "
+          f"{k2_ms / PREVIOUS_K2_MS:.3f}; in a CUDA graph {grid[plan]:.4f} ms), plain "
+          f"{k2_plain_ms:.4f} ms, bound {k2_b_ms:.5f} ms ({k2_b_by}) on {card}")
     phase("k2_timing", t0)
 
     # 10. the probes of scripts/probe_pallas*.py

@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-At first use, one ``nvcc`` compiles every ``csrc/*.cu`` (K1 ``bp4_qc.cu``
-and K2 ``bp2_qc.cu``, which share ``qc_common.cuh``, and the probe kernels
-of ``probes.cu``) into a shared library
-with a plain C interface, which ``ctypes`` loads.  No PyTorch
-headers are involved, so the build takes seconds.  The library goes into
+At first use, one ``nvcc`` per ``csrc/*.cu`` (K1 ``bp4_qc.cu`` and K2
+``bp2_qc.cu``, which share ``qc_common.cuh``, and the probe kernels of
+``probes.cu``), all started together, compiles each source into an object,
+and one more links them into a shared library with a plain C interface,
+which ``ctypes`` loads.  No PyTorch headers are involved.  The library goes into
 ``_build/`` beside this file (listed in .gitignore), named by a hash of the
 sources and the flags: a library left over from other sources can never be
 picked up.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory and
@@ -27,7 +27,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_DIR, "csrc")
 _OUT_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
@@ -63,14 +63,32 @@ def _build(lib: str) -> None:
     os.makedirs(_OUT_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cus = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus], capture_output=True, text=True, timeout=600
-    )
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, cu], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cu, obj in zip(cus, objs)
+    ]
+    reports, failed = [], []
+    for cu, proc in zip(cus, procs):
+        out, _ = proc.communicate(timeout=600)
+        reports.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(cu)} (exit {proc.returncode})")
+    report = "".join(reports)
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=600)
+        report += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode})")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{report}")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{report}")
     with open(lib[:-3] + ".ptxas.txt", "w") as f:
         f.write(report)
     os.replace(tmp, lib)
@@ -90,10 +108,15 @@ def load_kernels() -> ctypes.CDLL:
         build_info["ptxas"] = f.read()
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    dll.fgt_bp4_qc_launch.argtypes = [p, p, p, p, p] + [i] * 15 + [ctypes.c_float, i, i, p]
+    f = ctypes.c_float
+    dll.fgt_bp4_qc_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [f, i, i, i, p]
     dll.fgt_bp4_qc_launch.restype = i
-    dll.fgt_bp2_qc_launch.argtypes = [p, p, p, p] + [i] * 10 + [ctypes.c_float, i, i, p]
+    dll.fgt_bp4_qc_occupancy.argtypes = [i] * 6 + [p]
+    dll.fgt_bp4_qc_occupancy.restype = i
+    dll.fgt_bp2_qc_launch.argtypes = [p, p, p, p] + [i] * 8 + [f, i, i, i, p]
     dll.fgt_bp2_qc_launch.restype = i
+    dll.fgt_bp2_qc_occupancy.argtypes = [i] * 5 + [p]
+    dll.fgt_bp2_qc_occupancy.restype = i
     dll.fgt_probe_gather_launch.argtypes = [p, p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]
     dll.fgt_probe_gather_launch.restype = i
     dll.fgt_probe_shift_launch.argtypes = [p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]

@@ -6,31 +6,53 @@
 // channel LLRs and syndromes are read from device memory once and only the
 // marginals llrx/llry/llrz are written back.
 //
-// What bounds it on the card: operations, not bytes.  Per edge and
-// iteration the decode does two log-space extrinsics (exp, log1p) and, for
-// boxplus-phi, two phi evaluations (tanh, log) — transcendental-heavy f32
-// work on 5,292 ([[882,24]]) or 7,620 ([[1270,28]]) edges, against one
-// read of 4*(4n) bytes and one write of 4*(3n) bytes per sample.
+// What bounds it on the card: operations and their issue, not bytes.  Per
+// edge and iteration the decode does two log-space extrinsics (exp, log1p)
+// and, for boxplus-phi, two phi evaluations (tanh, log): chains of accurate
+// libm calls on 5,292 ([[882,24]]) or 7,620 ([[1270,28]]) edges, against
+// one read of 4*(4n) bytes and one write of 4*(3n) bytes per sample.  Such
+// chains need many warps in flight to keep the schedulers issuing.
 //
-// Design: one thread block decodes one sample and keeps that sample's whole
-// state in shared memory — 2 x G x l message floats, the 3n channel LLRs,
-// the syndromes as +-1 and the code's small index tables.  ([[1270,28]]
-// needs ~51 KB, above the 48 KB default, so the launcher opts in to the
-// larger dynamic size.)  The TPU kernel's two-roll-plus-select trick is not
-// needed: a cyclic shift is (q + s) mod l indexing into shared memory.
-// Message plane g, row r holds the edge between CN (i_g, r) and VN
-// (j_g, (r - s_g) mod l).  Each iteration is one pass over all VNs, which
-// reads each incident slot, forms the marginals and writes the extrinsic
-// back into the same slot (each slot belongs to one edge, so the in-place
-// update is race-free), then one pass over all CNs of both sides, again in
-// place.  Threads stride over nodes, so any code size fits a block.
-// Speed is a later concern: no tensor cores, no TMA, one sample per block.
+// What this design does about it:
+// - Everything a decode does not change is a template argument: the CN
+//   rule, the phi form, the degree pair (DC, DV).  No dead branch and no
+//   MAX_DEG-sized array is left in a specialised instance.
+// - __launch_bounds__(1024, 1) holds every instance to 64 registers, so an
+//   SM keeps 32 warps resident.
+// - The graph's indices are looked up once per node, not computed per
+//   edge: the wrapper builds a per-node slot table (uint16 message slots of
+//   each VN's Hx and Hz edges, in vn_groups order, and of each CN's edges,
+//   in cn_groups order), which the block copies into shared memory once.
+//   One 16-byte read per node and iteration replaces the divisions by l
+//   and the shift and group-table reads of every edge.
+// - Each thread owns fixed nodes of one sample for the whole decode (VN v
+//   and CN c for v, c = t, t + threads, ...).  A block holds
+//   samples_per_block samples, each in its own shared-memory slice with its
+//   own threads, which wait on the sample's own named barrier: a sample's
+//   half-iterations never wait for another's.  The wrapper's launch plan
+//   (decoders/bp4_qc.py, _launch_plan) picks the shape by batch: about one
+//   node per thread and one sample per block when the batch is small, to
+//   shorten each sample's critical path; fewer threads per sample and as
+//   many samples as the SM's shared memory holds when it is large.
+//   Samples past the batch in the last block return after the load.
 //
-// Numerics match the JAX kernel: sums in vn_groups / cn_groups order,
-// sign(0) = +1, softplus without threshold, phi clipped to
-// [8.5e-8, 16.635532] on input and output.
+// Per sample in shared memory: 2 x G x l message floats in the CN frame
+// (plane g, row r holds the edge between CN (i_g, r) and VN
+// (j_g, (r - s_g) mod l)), the 3n channel LLRs and one byte per syndrome
+// bit (the contract's {0,1}).  Each iteration is a VN pass, which reads each
+// incident slot, forms the marginals and writes the extrinsic back into the
+// same slot (each slot belongs to one edge, so the update in place is
+// race-free), then a CN pass over both sides, in place.
 //
-// The constants, phi and the CN update are shared with the binary kernel
+// Numerics match the JAX kernel and the plain version bit for bit: sums in
+// vn_groups / cn_groups order, sign(0) = +1, softplus without threshold,
+// phi clipped to [8.5e-8, 16.635532] on input and output, accurate libm
+// only (no fast-math), no expression that nvcc could contract into an FMA.
+//
+// Instances (K1_INSTANCES below): the five CN-rule/phi cases for the degree
+// pairs (6, 3) (the GHP codes) and (8, 4) (GB-48), and for (0, 0), the
+// generic instance with runtime degrees up to MAX_DEG.  The constants, phi,
+// the CN update and the slot-table rows are shared with the binary kernel
 // (bp2_qc.cu) through qc_common.cuh.  Built with plain nvcc into a shared
 // library with a C interface and loaded with ctypes
 // (feedback_gnn_tpu_torch/_build.py); no PyTorch headers.
@@ -40,7 +62,7 @@
 namespace {
 
 struct Dims {
-  int l, nb, mbx, mbz, gx, gz, dcx, dcz, dvx, dvz;
+  int n, mx, mz, msgs;  // VNs, Hx CNs, Hz CNs, message slots of both sides
 };
 
 // log(exp(-a) + exp(-b))
@@ -48,126 +70,183 @@ __device__ __forceinline__ float lse_neg(float a, float b) {
   return -fminf(a, b) + log1pf(expf(-fabsf(a - b)));
 }
 
-// Sum of the VN-frame messages at VN (j, q) over the groups of block column
-// j, in vn_groups order.  Fills the slot indices and the values read.
-__device__ __forceinline__ float vn_gather(const float* msg, const Side& s, int l, int j, int q,
-                                           int* slot, float* val, int& deg) {
-  deg = s.vn_deg[j];
+// Slot-table layout of an instance: a VN row holds VW Hx slots then VW Hz
+// slots, a CN row CW slots, each row padded to 16 bytes.
+template <int DC, int DV>
+struct K1Layout {
+  static constexpr int VW = DV ? DV : MAX_DEG;
+  static constexpr int CW = DC ? DC : MAX_DEG;
+  static constexpr int RV = round_up(2 * VW, 8);
+  static constexpr int RC = round_up(CW, 8);
+};
+
+// Sum of the VN-frame messages of one side, in vn_groups order; the values
+// read are kept for the extrinsics.
+template <int DV, int VW, int W>
+__device__ __forceinline__ float vn_side(const float* msg, const Row<W>& row, int k0, float* val,
+                                         int& deg) {
+  deg = DV ? DV : row.degree(k0, VW);
   float sum = 0.0f;
 #pragma unroll
-  for (int k = 0; k < MAX_DEG; ++k) {
+  for (int k = 0; k < VW; ++k) {
     if (k < deg) {
-      const int g = s.vn_tab[j * s.dv + k];
-      int r = q + s.shift[g];
-      if (r >= l) r -= l;
-      slot[k] = g * l + r;
-      val[k] = msg[slot[k]];
+      val[k] = msg[row[k0 + k]];
       sum = (k == 0) ? val[k] : sum + val[k];
     }
   }
   return sum;
 }
 
-__global__ void bp4_qc_kernel(const float* __restrict__ llr, const float* __restrict__ synx,
-                              const float* __restrict__ synz, float* __restrict__ out,
-                              const int* __restrict__ tab, int tab_len, Dims d, int num_iter,
-                              int cn_type, int phi_impl, float factor) {
-  extern __shared__ float smem[];
-  const int l = d.l;
-  const int n = d.nb * l;
-  const int mx = d.mbx * l;
-  const int mz = d.mbz * l;
-  float* msg_x = smem;               // [gx, l] CN-frame planes of Hx edges
-  float* msg_z = msg_x + d.gx * l;   // [gz, l] planes of Hz edges
-  float* L = msg_z + d.gz * l;       // [3, n] channel LLRs (x, y, z)
-  float* sx = L + 3 * n;             // [mx] Hx syndrome as +-1
-  float* sz = sx + mx;               // [mz] Hz syndrome as +-1
-  int* t = reinterpret_cast<int*>(sz + mz);
+template <int CN, int PHI, int DC, int DV>
+__global__ void __launch_bounds__(1024, 1)
+    bp4_qc_kernel(const float* __restrict__ llr, const float* __restrict__ synx,
+                  const float* __restrict__ synz, float* __restrict__ out,
+                  const uint16_t* __restrict__ tab, Dims d, int num_iter, float factor, int batch,
+                  int threads) {
+  using Lay = K1Layout<DC, DV>;
+  constexpr int VW = Lay::VW, RV = Lay::RV, RC = Lay::RC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = d.n, m = d.mx + d.mz;
+  const int vtab_bytes = round_up(2 * n * RV, 16);
+  const int tab_bytes = vtab_bytes + 2 * m * RC;
+  const int sample_bytes = round_up(4 * d.msgs + 12 * n + m, 16);
 
-  const size_t b = blockIdx.x;
-  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x) L[k] = llr[b * 3 * n + k];
-  for (int k = threadIdx.x; k < mx; k += blockDim.x) sx[k] = 1.0f - 2.0f * synx[b * mx + k];
-  for (int k = threadIdx.x; k < mz; k += blockDim.x) sz[k] = 1.0f - 2.0f * synz[b * mz + k];
-  for (int k = threadIdx.x; k < tab_len; k += blockDim.x) t[k] = tab[k];
-  for (int k = threadIdx.x; k < (d.gx + d.gz) * l; k += blockDim.x) msg_x[k] = 0.0f;
+  const uint16_t* vtab = reinterpret_cast<const uint16_t*>(smem);               // [n, RV]
+  const uint16_t* ctab = reinterpret_cast<const uint16_t*>(smem + vtab_bytes);  // [m, RC]
+  for (int k = threadIdx.x; k < tab_bytes / 16; k += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[k] = reinterpret_cast<const uint4*>(tab)[k];
+
+  const int s = threadIdx.x / threads;  // this thread's sample in the block
+  const int t = threadIdx.x - s * threads;
+  const size_t b = static_cast<size_t>(blockIdx.x) * (blockDim.x / threads) + s;
+  float* msg = reinterpret_cast<float*>(smem + tab_bytes + s * sample_bytes);  // [msgs]
+  float* L = msg + d.msgs;                                                    // [3, n]
+  unsigned char* syn = reinterpret_cast<unsigned char*>(L + 3 * n);           // [m] 0/1
+  const bool active = b < static_cast<size_t>(batch);
+  if (active) {
+    for (int k = t; k < 3 * n; k += threads) L[k] = llr[b * 3 * n + k];
+    for (int k = t; k < d.mx; k += threads) syn[k] = synx[b * d.mx + k] != 0.0f;
+    for (int k = t; k < d.mz; k += threads) syn[d.mx + k] = synz[b * d.mz + k] != 0.0f;
+    for (int k = t; k < d.msgs; k += threads) msg[k] = 0.0f;
+  }
   __syncthreads();
-
-  const Side X = side_at(t, d.nb, d.mbx, d.gx, d.dcx, d.dvx);
-  const Side Z = side_at(t + side_len(d.nb, d.mbx, d.gx, d.dcx, d.dvx), d.nb, d.mbz, d.gz, d.dcz,
-                         d.dvz);
+  if (!active) return;  // a ragged tail's empty slices; no barrier waits for them
 
   for (int it = 0; it < num_iter; ++it) {
     // VN pass: marginals, then extrinsics written back into the read slots
-    for (int v = threadIdx.x; v < n; v += blockDim.x) {
-      const int j = v / l;
-      const int q = v - j * l;
-      int slot_x[MAX_DEG], slot_z[MAX_DEG], dgx, dgz;
-      float val_x[MAX_DEG], val_z[MAX_DEG];
-      const float s_x = vn_gather(msg_x, X, l, j, q, slot_x, val_x, dgx);  // about Z
-      const float s_z = vn_gather(msg_z, Z, l, j, q, slot_z, val_z, dgz);  // about X
+    for (int v = t; v < n; v += threads) {
+      const Row<RV> row(vtab + v * RV);
+      float val_x[VW], val_z[VW];
+      int dgx, dgz;
+      const float s_x = vn_side<DV, VW>(msg, row, 0, val_x, dgx);   // about Z
+      const float s_z = vn_side<DV, VW>(msg, row, VW, val_z, dgz);  // about X
       const float llrx = s_z + L[v];
       const float llry = s_x + s_z + L[n + v];
       const float llrz = s_x + L[2 * n + v];
       const float num_x = softplusf(-llrx);
 #pragma unroll
-      for (int k = 0; k < MAX_DEG; ++k) {
-        if (k < dgx) msg_x[slot_x[k]] = num_x - lse_neg(llrz - val_x[k], llry - val_x[k]);
+      for (int k = 0; k < VW; ++k) {
+        if (k < dgx) msg[row[k]] = num_x - lse_neg(llrz - val_x[k], llry - val_x[k]);
       }
       const float num_z = softplusf(-llrz);
 #pragma unroll
-      for (int k = 0; k < MAX_DEG; ++k) {
-        if (k < dgz) msg_z[slot_z[k]] = num_z - lse_neg(llrx - val_z[k], llry - val_z[k]);
+      for (int k = 0; k < VW; ++k) {
+        if (k < dgz) msg[row[VW + k]] = num_z - lse_neg(llrx - val_z[k], llry - val_z[k]);
       }
     }
-    __syncthreads();
-    // CN pass over both sides
-    for (int c = threadIdx.x; c < mx + mz; c += blockDim.x) {
-      if (c < mx) {
-        const int i = c / l;
-        cn_node(msg_x, X, l, i, c - i * l, sx[c], cn_type, phi_impl, factor);
-      } else {
-        const int cz = c - mx;
-        const int i = cz / l;
-        cn_node(msg_z, Z, l, i, cz - i * l, sz[cz], cn_type, phi_impl, factor);
-      }
+    sample_sync(s, threads);
+    // CN pass over both sides (Hx CNs, then Hz CNs)
+    for (int c = t; c < m; c += threads) {
+      const Row<RC> row(ctab + c * RC);
+      cn_node<CN, PHI, DC>(msg, row, syn[c] ? -1.0f : 1.0f, factor);
     }
-    __syncthreads();
+    sample_sync(s, threads);
   }
 
   // final marginals
-  for (int v = threadIdx.x; v < n; v += blockDim.x) {
-    const int j = v / l;
-    const int q = v - j * l;
-    int slot[MAX_DEG], dg;
-    float val[MAX_DEG];
-    const float s_x = vn_gather(msg_x, X, l, j, q, slot, val, dg);
-    const float s_z = vn_gather(msg_z, Z, l, j, q, slot, val, dg);
+  for (int v = t; v < n; v += threads) {
+    const Row<RV> row(vtab + v * RV);
+    float val[VW];
+    int dg;
+    const float s_x = vn_side<DV, VW>(msg, row, 0, val, dg);
+    const float s_z = vn_side<DV, VW>(msg, row, VW, val, dg);
     out[b * 3 * n + v] = s_z + L[v];
     out[b * 3 * n + n + v] = s_x + s_z + L[n + v];
     out[b * 3 * n + 2 * n + v] = s_x + L[2 * n + v];
   }
 }
 
+using K1Fn = void (*)(const float*, const float*, const float*, float*, const uint16_t*, Dims, int,
+                      float, int, int);
+
+struct K1Instance {
+  int cn, phi, dc, dv;
+  K1Fn fn;
+};
+
+// Every instance the launcher dispatches to: (CN rule, phi form, DC, DV).
+const K1Instance K1_INSTANCES[] = {
+    {CN_PHI, PHI_TANH, 6, 3, bp4_qc_kernel<CN_PHI, PHI_TANH, 6, 3>},
+    {CN_PHI, PHI_TF, 6, 3, bp4_qc_kernel<CN_PHI, PHI_TF, 6, 3>},
+    {CN_PHI, PHI_ACCURATE, 6, 3, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 6, 3>},
+    {CN_TANH, PHI_TANH, 6, 3, bp4_qc_kernel<CN_TANH, PHI_TANH, 6, 3>},
+    {CN_MINSUM, PHI_TANH, 6, 3, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 6, 3>},
+    {CN_PHI, PHI_TANH, 8, 4, bp4_qc_kernel<CN_PHI, PHI_TANH, 8, 4>},
+    {CN_PHI, PHI_TF, 8, 4, bp4_qc_kernel<CN_PHI, PHI_TF, 8, 4>},
+    {CN_PHI, PHI_ACCURATE, 8, 4, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 8, 4>},
+    {CN_TANH, PHI_TANH, 8, 4, bp4_qc_kernel<CN_TANH, PHI_TANH, 8, 4>},
+    {CN_MINSUM, PHI_TANH, 8, 4, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 8, 4>},
+    {CN_PHI, PHI_TANH, 0, 0, bp4_qc_kernel<CN_PHI, PHI_TANH, 0, 0>},
+    {CN_PHI, PHI_TF, 0, 0, bp4_qc_kernel<CN_PHI, PHI_TF, 0, 0>},
+    {CN_PHI, PHI_ACCURATE, 0, 0, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 0, 0>},
+    {CN_TANH, PHI_TANH, 0, 0, bp4_qc_kernel<CN_TANH, PHI_TANH, 0, 0>},
+    {CN_MINSUM, PHI_TANH, 0, 0, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 0, 0>},
+};
+
+K1Fn k1_instance(int cn, int phi, int dc, int dv) {
+  for (const K1Instance& k : K1_INSTANCES)
+    if (k.cn == cn && k.phi == phi && k.dc == dc && k.dv == dv) return k.fn;
+  return nullptr;
+}
+
 }  // namespace
 
-// Launches one block of `threads` threads per sample on `stream`.
-// llr [batch, 3, n], synx [batch, mbx*l], synz [batch, mbz*l] (0/1 floats),
-// out [batch, 3, n]; tab is the int table of both sides (Hx then Hz).
-// Returns the CUDA error code of the attribute call or the launch (0 = ok).
+// Launches ceil(batch / samples_per_block) blocks of threads *
+// samples_per_block threads on `stream`, with smem_bytes of dynamic shared
+// memory.  llr [batch, 3, n], synx [batch, mx], synz [batch, mz] (0/1
+// floats), out [batch, 3, n]; tab the uint16 slot table of the instance's
+// layout (VN rows, then CN rows; 16-byte multiple).  Returns the CUDA error
+// code of the attribute call or the launch (0 = ok), -1 for an instance
+// that does not exist.
 extern "C" int fgt_bp4_qc_launch(const float* llr, const float* synx, const float* synz,
-                                 float* out, const int* tab, int tab_len, int batch, int l, int nb,
-                                 int mbx, int mbz, int gx, int gz, int dcx, int dcz, int dvx,
-                                 int dvz, int num_iter, int cn_type, int phi_impl, float factor,
-                                 int threads, int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(bp4_qc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+                                 float* out, const uint16_t* tab, int batch, int n, int mx, int mz,
+                                 int msgs, int num_iter, int cn_type, int phi_impl, int dc, int dv,
+                                 float factor, int threads, int samples_per_block, int smem_bytes,
+                                 void* stream) {
+  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv);
+  if (fn == nullptr) return -1;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Dims d{l, nb, mbx, mbz, gx, gz, dcx, dcz, dvx, dvz};
-  bp4_qc_kernel<<<batch, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      llr, synx, synz, out, tab, tab_len, d, num_iter, cn_type, phi_impl, factor);
+  const Dims d{n, mx, mz, msgs};
+  const int blocks = (batch + samples_per_block - 1) / samples_per_block;
+  fn<<<blocks, threads * samples_per_block, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      llr, synx, synz, out, tab, d, num_iter, factor, batch, threads);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM, registers per thread and spill bytes per thread
+// of one instance at block_threads threads and smem_bytes of dynamic shared
+// memory, into out[0..2].  Returns a CUDA error code (0 = ok), -1 for an
+// instance that does not exist.
+extern "C" int fgt_bp4_qc_occupancy(int cn_type, int phi_impl, int dc, int dv, int block_threads,
+                                    int smem_bytes, int* out) {
+  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv);
+  if (fn == nullptr) return -1;
+  return occupancy_of(fn, block_threads, smem_bytes, out);
+}
+
 extern "C" const char* fgt_cuda_error_string(int code) {
+  if (code == -1) return "no kernel instance for this CN rule, phi form and degree pair";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

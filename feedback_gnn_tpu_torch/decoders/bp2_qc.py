@@ -21,11 +21,13 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..codes.qc import QCGraphSpec
 from .bp4_qc import (
-    CN_TYPES, MAX_DEG, SMEM_LIMIT, THREADS, _cn_plain, _roll, _side_index, _side_table, _SideIndex,
+    CN_TYPES, MAX_DEG, NO_SLOT, LaunchPlan, _cn_plain, _cn_slots, _instance, _pack_tables, _plan,
+    _roll, _round_up, _side_index, _SideIndex, _vn_slots,
 )
 from .cn_update import LLR_MAX
 
@@ -65,39 +67,85 @@ def bp2_qc_logits_plain(spec: QCGraphSpec, llr_ch, syndrome, num_iter: int,
     return -tot.reshape(nb * l, b)
 
 
+# K2's __launch_bounds__: the minsum instances at (512, 3), 40 registers;
+# the others at (512, 2), 64
+K2_MAX_THREADS = 512
+
+
+def _k2_regs(cn_type: str) -> int:
+    return 40 if cn_type == "minsum" else 64
+
+
+def _slot_tables(spec: QCGraphSpec, instance: tuple):
+    """K2's per-node slot tables for an instance (layout K2Layout of
+    csrc/bp2_qc.cu): VN rows [n, RV], CN rows [m, RC]."""
+    dc, dv = instance
+    vw, cw = dv or MAX_DEG, dc or MAX_DEG
+    if spec.num_edges > NO_SLOT:
+        raise ValueError("more message slots than a uint16 slot table holds")
+    vtab = np.full((spec.nb * spec.l, _round_up(vw, 4)), NO_SLOT, np.int64)
+    vtab[:, :vw] = _vn_slots(spec, vw, 0)
+    ctab = np.full((spec.mb * spec.l, _round_up(cw, 8)), NO_SLOT, np.int64)
+    ctab[:, :cw] = _cn_slots(spec, cw, 0)
+    return vtab, ctab
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(spec: QCGraphSpec, batch: int, cn_type: str, threads: int | None = None,
+                 samples_per_block: int | None = None, instance: tuple | None = None) -> LaunchPlan:
+    """K2's launch plan for ``batch`` samples of ``spec`` under ``cn_type``,
+    whose instance's register cap it takes (see bp4_qc._plan); ``instance``
+    overrides the degree pair."""
+    instance = instance or _instance((spec,))
+    vtab, ctab = _slot_tables(spec, instance)
+    tab_bytes = 2 * _round_up(vtab.size, 8) + 2 * ctab.size
+    n, m = spec.nb * spec.l, spec.mb * spec.l
+    sample_bytes = _round_up(4 * spec.num_edges + 4 * n + m, 16)
+    return _plan(instance, max(n, m), tab_bytes, sample_bytes, batch, _k2_regs(cn_type),
+                 K2_MAX_THREADS, threads, samples_per_block)
+
+
 @functools.lru_cache(maxsize=8)
-def _kernel_table(spec: QCGraphSpec, device: torch.device):
-    """The kernel's int32 table (layout of Side in csrc/qc_common.cuh) on
-    the card, its degree bounds and the shared-memory size in bytes."""
-    tab, dc, dv = _side_table(spec)
-    if max(dc, dv) > MAX_DEG:
-        raise ValueError(f"node degree above the kernel's MAX_DEG={MAX_DEG}")
-    floats = spec.num_groups * spec.l + (spec.nb + spec.mb) * spec.l
-    smem = 4 * floats + 4 * tab.size
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"one sample's state ({smem} B) exceeds a block's shared memory")
-    return torch.as_tensor(tab, device=device), (dc, dv), smem
+def _kernel_table(spec: QCGraphSpec, instance: tuple, device: torch.device):
+    """K2's packed slot table for an instance, on the card."""
+    return torch.as_tensor(_pack_tables(*_slot_tables(spec, instance)), device=device)
 
 
-def _launch_kernel(spec: QCGraphSpec, llr_ch, syndrome, num_iter, cn_type, factor):
+def _occupancy(spec: QCGraphSpec, cn_type, plan: LaunchPlan):
+    """(resident blocks per SM, registers per thread, spill bytes per
+    thread) of the plan's K2 instance on the card, from the CUDA runtime."""
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    out = (ctypes.c_int * 3)()
+    err = lib.fgt_bp2_qc_occupancy(CN_TYPES.index(cn_type), *plan.instance, plan.block_threads,
+                                   plan.smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"bp2_qc occupancy query failed: {lib.fgt_cuda_error_string(err).decode()}")
+    return tuple(out)
+
+
+def _launch_kernel(spec: QCGraphSpec, llr_ch, syndrome, num_iter, cn_type, factor,
+                   plan: LaunchPlan | None = None):
     from .._build import load_kernels
 
     global launches
     lib = load_kernels()
     dev = llr_ch.device
-    tab, (dc, dv), smem = _kernel_table(spec, dev)
-    n, b = spec.nb * spec.l, llr_ch.shape[-1]
-    # per-sample contiguous copies: the kernel gives each sample one block
+    n, m, b = spec.nb * spec.l, spec.mb * spec.l, llr_ch.shape[-1]
+    # per-sample contiguous copies: each sample's state is loaded by its own threads
     llr_k = llr_ch.to(torch.float32).T.contiguous()  # [B, n]
     syn_k = syndrome.to(torch.float32).T.contiguous()  # [B, m]
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b:
+        plan = plan or _launch_plan(spec, b, cn_type)
+        tab = _kernel_table(spec, plan.instance, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fgt_bp2_qc_launch(
-                llr_k.data_ptr(), syn_k.data_ptr(), out.data_ptr(), tab.data_ptr(),
-                int(tab.numel()), b, spec.l, spec.nb, spec.mb, spec.num_groups, dc, dv,
-                int(num_iter), CN_TYPES.index(cn_type), ctypes.c_float(factor), THREADS, smem,
+                llr_k.data_ptr(), syn_k.data_ptr(), out.data_ptr(), tab.data_ptr(), b, n, m,
+                spec.num_edges, int(num_iter), CN_TYPES.index(cn_type), *plan.instance,
+                ctypes.c_float(factor), plan.threads, plan.samples_per_block, plan.smem_bytes,
                 stream,
             )
         if err != 0:

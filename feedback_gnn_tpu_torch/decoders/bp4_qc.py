@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -42,9 +43,19 @@ __all__ = ["bp4_qc_marginals", "bp4_qc_marginals_plain", "bp4_decode_qc", "qc_su
 CN_TYPES = ("boxplus-phi", "boxplus", "minsum")
 # phi_impl -> the kernel's formulation code (0: tanh form, 1: tf, 2: accurate)
 PHI_CODES = {None: 0, "expm1": 0, "tf": 1, "accurate": 2}
-MAX_DEG = 8  # largest node degree the kernel takes (csrc/bp4_qc.cu)
-THREADS = 256  # threads per block; each block decodes one sample
-SMEM_LIMIT = 232448  # shared memory one block may use on Hopper
+MAX_DEG = 8  # largest node degree of the generic instance (csrc/qc_common.cuh)
+# degree pairs (DC, DV) with instances of their own; (0, 0) is the generic one
+SPECIALISED = ((6, 3), (8, 4))
+NO_SLOT = 0xFFFF  # an unused entry of a slot-table row
+# The card (H100 SXM): shared memory one block may use, shared memory of one
+# SM (1 KB of it reserved per resident block), SMs, threads and registers per SM
+SMEM_LIMIT = 232448
+SM_SMEM, SM_BLOCK_RESERVED = 233472, 1024
+SM_COUNT, SM_THREADS, SM_REGS = 132, 2048, 65536
+MAX_SAMPLES_PER_BLOCK = 15  # named barriers 1..15, one per sample
+ENOUGH_WARPS = 16  # resident warps per SM a large-batch plan must keep
+# K1's __launch_bounds__(1024, 1): registers per thread and threads per block
+K1_REGS, K1_MAX_THREADS = 64, 1024
 
 # kernel launches since the last reset; the plain version does not count
 launches = 0
@@ -211,61 +222,228 @@ def bp4_qc_marginals_plain(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter:
     return llrx.reshape(n, b), llry.reshape(n, b), llrz.reshape(n, b)
 
 
-def _side_table(spec: QCGraphSpec):
-    """shifts [G], cn_tab [mb*dc], cn_deg [mb], vn_tab [nb*dv], vn_deg [nb]."""
-    dc = max(len(c) for c in spec.cn_groups)
-    dv = max(len(v) for v in spec.vn_groups)
-    cn_tab = [list(c) + [-1] * (dc - len(c)) for c in spec.cn_groups]
-    vn_tab = [list(v) + [-1] * (dv - len(v)) for v in spec.vn_groups]
-    parts = [
-        [g[2] for g in spec.groups],
-        sum(cn_tab, []),
-        [len(c) for c in spec.cn_groups],
-        sum(vn_tab, []),
-        [len(v) for v in spec.vn_groups],
-    ]
-    return np.concatenate([np.asarray(p, np.int32) for p in parts]), dc, dv
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _instance(specs) -> tuple:
+    """The degree pair (DC, DV) of the kernel instance for these sides:
+    their own if every CN has degree DC and every VN degree DV on each side
+    and an instance exists for the pair, else (0, 0), the generic one."""
+    dcs = {len(c) for s in specs for c in s.cn_groups}
+    dvs = {len(v) for s in specs for v in s.vn_groups}
+    if max(dcs | dvs) > MAX_DEG:
+        raise ValueError(f"node degree above the kernel's MAX_DEG={MAX_DEG}")
+    pair = (dcs.pop(), dvs.pop()) if len(dcs) == 1 and len(dvs) == 1 else None
+    return pair if pair in SPECIALISED else (0, 0)
+
+
+def _vn_slots(spec: QCGraphSpec, width: int, offset: int) -> np.ndarray:
+    """[nb*l, width]: the message slots (CN frame, plane g row (q + s_g) mod
+    l, plus ``offset``) of each VN's edges in vn_groups order, NO_SLOT past
+    its degree."""
+    l = spec.l
+    q = np.arange(l)
+    out = np.full((spec.nb, l, width), NO_SLOT, np.int64)
+    for j, gs in enumerate(spec.vn_groups):
+        for k, g in enumerate(gs):
+            out[j, :, k] = offset + g * l + (q + spec.groups[g][2]) % l
+    return out.reshape(spec.nb * l, width)
+
+
+def _cn_slots(spec: QCGraphSpec, width: int, offset: int) -> np.ndarray:
+    """[mb*l, width]: the message slots (plane g row r, plus ``offset``) of
+    each CN (i, r)'s edges in cn_groups order, NO_SLOT past its degree."""
+    l = spec.l
+    out = np.full((spec.mb, l, width), NO_SLOT, np.int64)
+    for i, gs in enumerate(spec.cn_groups):
+        for k, g in enumerate(gs):
+            out[i, :, k] = offset + g * l + np.arange(l)
+    return out.reshape(spec.mb * l, width)
+
+
+def _slot_tables(qc: QCPair, instance: tuple):
+    """K1's per-node slot tables for an instance (layout K1Layout of
+    csrc/bp4_qc.cu): VN rows [n, RV] (VW Hx slots, then VW Hz slots) and CN
+    rows [mx + mz, RC] (Hx CNs, then Hz CNs); Hz slots follow the Hx planes."""
+    dc, dv = instance
+    vw, cw = dv or MAX_DEG, dc or MAX_DEG
+    zoff = qc.qx.num_edges
+    if zoff + qc.qz.num_edges > NO_SLOT:
+        raise ValueError("more message slots than a uint16 slot table holds")
+    vtab = np.full((qc.n, _round_up(2 * vw, 8)), NO_SLOT, np.int64)
+    vtab[:, :vw] = _vn_slots(qc.qx, vw, 0)
+    vtab[:, vw:2 * vw] = _vn_slots(qc.qz, vw, zoff)
+    ctab = np.full((qc.qx.mb * qc.l + qc.qz.mb * qc.l, _round_up(cw, 8)), NO_SLOT, np.int64)
+    ctab[:, :cw] = np.concatenate([_cn_slots(qc.qx, cw, 0), _cn_slots(qc.qz, cw, zoff)])
+    return vtab, ctab
+
+
+def _pack_tables(vtab: np.ndarray, ctab: np.ndarray) -> np.ndarray:
+    """VN rows, zero padding to 16 bytes, CN rows: the uint16 table the
+    kernels copy into shared memory, as int16 (torch's) bits."""
+    vflat = vtab.astype(np.uint16).reshape(-1)
+    pad = np.zeros(_round_up(vflat.size, 8) - vflat.size, np.uint16)
+    return np.concatenate([vflat, pad, ctab.astype(np.uint16).reshape(-1)]).view(np.int16)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch of K1 or K2 lays out its batch."""
+
+    instance: tuple  # (DC, DV) of the kernel instance; (0, 0) the generic one
+    threads: int  # threads per sample (whole warps)
+    samples_per_block: int
+    smem_bytes: int  # dynamic shared memory per block: slot table + samples
+    blocks_per_sm: int  # resident blocks per SM the plan expects
+    regime: str  # "small" (about one node per thread) or "large" (fill the SM)
+    nodes_per_thread: int  # VNs or CNs a thread visits per half-iteration, at most:
+    # ceil(nodes / threads), so threads x nodes_per_thread covers every node
+
+    @property
+    def block_threads(self) -> int:
+        return self.threads * self.samples_per_block
+
+    def blocks(self, batch: int) -> int:
+        return -(-batch // self.samples_per_block)
+
+
+def _blocks_per_sm(block_threads: int, smem: int, regs: int) -> int:
+    """Resident blocks per SM by threads, registers (allocated per warp in
+    units of 256) and shared memory."""
+    warps = block_threads // 32
+    by_regs = SM_REGS // (warps * _round_up(regs * 32, 256))
+    by_smem = SM_SMEM // (smem + SM_BLOCK_RESERVED)
+    return min(SM_THREADS // block_threads, by_regs, by_smem, 32)
+
+
+def _plan(instance, nodes, tab_bytes, sample_bytes, batch, regs, max_threads,
+          threads=None, samples_per_block=None) -> LaunchPlan:
+    """The launch plan of one decode.  ``nodes`` is max(VNs, CNs) of a
+    sample; ``regs`` the instance's register cap from its launch bounds.
+
+    Large batches fill each SM: as many samples as shared memory holds at
+    ENOUGH_WARPS resident warps or more, then the fewest warps (each thread
+    walks more nodes between its sample's barriers), and the block's
+    threads shared out among them.  A batch that one wave of that plan
+    holds is small: its samples spread over the SMs in one block each, as
+    ceil(batch / SM_COUNT) samples per block sharing the block's threads
+    (about one node per thread at one sample).  Both rules are the winners
+    of the plan grid chip_smoke.py measures (PERF.md).  ``threads`` and
+    ``samples_per_block`` override the choice."""
+    all_threads = _round_up(nodes, 32)
+    thread_cap = min(SM_THREADS, SM_REGS // _round_up(regs * 32, 256) * 32)
+    best = None
+    for nblk in range(1, thread_cap // 32 + 1):
+        bt_max = min(max_threads, thread_cap // nblk // 32 * 32)
+        budget = min(SMEM_LIMIT, SM_SMEM // nblk - SM_BLOCK_RESERVED)
+        spb = min(MAX_SAMPLES_PER_BLOCK, (budget - tab_bytes) // sample_bytes, bt_max // 32)
+        if spb < 1:
+            continue
+        thr = min(all_threads, bt_max // spb // 32 * 32)
+        warps, samples = nblk * spb * thr // 32, nblk * spb
+        key = (warps >= ENOUGH_WARPS, samples, -warps)
+        if best is None or key > best[0]:
+            best = (key, thr, spb)
+    if best is None:
+        raise ValueError(f"one sample's state ({tab_bytes + sample_bytes} B with the slot table) "
+                         f"exceeds a block's shared memory ({SMEM_LIMIT} B)")
+    _, large_threads, large_spb = best
+    large_blocks = _blocks_per_sm(large_threads * large_spb, tab_bytes + large_spb * sample_bytes, regs)
+    regime = "small" if batch <= SM_COUNT * large_blocks * large_spb else "large"
+    if regime == "small":
+        spb = min(large_spb, -(-batch // SM_COUNT))
+        thr = min(all_threads, max_threads // spb // 32 * 32)
+    else:
+        thr, spb = large_threads, large_spb
+    thr = threads or thr
+    spb = samples_per_block or spb
+    smem = tab_bytes + spb * sample_bytes
+    per = -(-nodes // thr)
+    if thr % 32 or thr * spb > max_threads or not 1 <= spb <= MAX_SAMPLES_PER_BLOCK:
+        raise ValueError(f"no launch of {spb} x {thr} threads (whole warps, at most {max_threads})")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{spb} samples ({smem} B with the slot table) exceed a block's shared "
+                         f"memory ({SMEM_LIMIT} B)")
+    blocks = _blocks_per_sm(thr * spb, smem, regs)
+    if blocks < 1:
+        raise ValueError(f"a block of {thr * spb} threads and {smem} B does not fit an SM")
+    return LaunchPlan(instance, thr, spb, smem, blocks, regime, per)
+
+
+def _k1_bytes(qc: QCPair, instance: tuple):
+    """(slot-table bytes, bytes of one sample's state) of K1 in shared memory."""
+    vtab, ctab = _slot_tables(qc, instance)
+    tab_bytes = 2 * _round_up(vtab.size, 8) + 2 * ctab.size
+    m = (qc.qx.mb + qc.qz.mb) * qc.l
+    msgs = qc.qx.num_edges + qc.qz.num_edges
+    return tab_bytes, _round_up(4 * msgs + 12 * qc.n + m, 16)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(qc: QCPair, batch: int, threads: int | None = None,
+                 samples_per_block: int | None = None, instance: tuple | None = None) -> LaunchPlan:
+    """K1's launch plan for ``batch`` samples of ``qc`` (see ``_plan``);
+    ``instance`` overrides the degree pair (the tests reach the generic
+    instance with it)."""
+    instance = instance or _instance((qc.qx, qc.qz))
+    tab_bytes, sample_bytes = _k1_bytes(qc, instance)
+    nodes = max(qc.n, (qc.qx.mb + qc.qz.mb) * qc.l)
+    return _plan(instance, nodes, tab_bytes, sample_bytes, batch, K1_REGS, K1_MAX_THREADS,
+                 threads, samples_per_block)
 
 
 @functools.lru_cache(maxsize=8)
-def _kernel_tables(qc: QCPair, device: torch.device):
-    """The kernel's int32 table (both sides, layout of csrc/bp4_qc.cu) on
-    the card, its degree bounds and its shared-memory size in bytes."""
-    tx, dcx, dvx = _side_table(qc.qx)
-    tz, dcz, dvz = _side_table(qc.qz)
-    if max(dcx, dcz, dvx, dvz) > MAX_DEG:
-        raise ValueError(f"node degree above the kernel's MAX_DEG={MAX_DEG}")
-    tab = np.concatenate([tx, tz])
-    l = qc.l
-    floats = (qc.qx.num_groups + qc.qz.num_groups) * l + 3 * qc.n + (qc.qx.mb + qc.qz.mb) * l
-    smem = 4 * floats + 4 * tab.size
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"one sample's state ({smem} B) exceeds a block's shared memory")
-    return torch.as_tensor(tab, device=device), (dcx, dcz, dvx, dvz), smem
+def _kernel_table(qc: QCPair, instance: tuple, device: torch.device):
+    """K1's packed slot table for an instance, on the card."""
+    return torch.as_tensor(_pack_tables(*_slot_tables(qc, instance)), device=device)
 
 
-def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type, factor, phi_impl):
+def _kernel_codes(cn_type, phi_impl, instance):
+    """The C launcher's instance key: CN rule, phi form (0 for the rules
+    that do not use phi), DC, DV."""
+    phi = PHI_CODES[phi_impl] if cn_type == "boxplus-phi" else 0
+    return (CN_TYPES.index(cn_type), phi) + tuple(instance)
+
+
+def _occupancy(qc: QCPair, cn_type, phi_impl, plan: LaunchPlan):
+    """(resident blocks per SM, registers per thread, spill bytes per
+    thread) of the plan's K1 instance on the card, from the CUDA runtime."""
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    out = (ctypes.c_int * 3)()
+    err = lib.fgt_bp4_qc_occupancy(*_kernel_codes(cn_type, phi_impl, plan.instance),
+                                   plan.block_threads, plan.smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"bp4_qc occupancy query failed: {lib.fgt_cuda_error_string(err).decode()}")
+    return tuple(out)
+
+
+def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type, factor, phi_impl,
+                   plan: LaunchPlan | None = None):
     from .._build import load_kernels
 
     global launches
     lib = load_kernels()
     dev = llr_ch.device
-    tab, (dcx, dcz, dvx, dvz), smem = _kernel_tables(qc, dev)
     n, b = qc.n, llr_ch.shape[-1]
-    # per-sample contiguous copies: the kernel gives each sample one block
+    mx, mz = qc.qx.mb * qc.l, qc.qz.mb * qc.l
+    # per-sample contiguous copies: each sample's state is loaded by its own threads
     llr_k = llr_ch.to(torch.float32).permute(2, 0, 1).contiguous()  # [B, 3, n]
     synx_k = syndrome_x.to(torch.float32).T.contiguous()  # [B, mx]
     synz_k = syndrome_z.to(torch.float32).T.contiguous()  # [B, mz]
     out = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
     if b:
+        plan = plan or _launch_plan(qc, b)
+        tab = _kernel_table(qc, plan.instance, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fgt_bp4_qc_launch(
                 llr_k.data_ptr(), synx_k.data_ptr(), synz_k.data_ptr(), out.data_ptr(),
-                tab.data_ptr(), int(tab.numel()), b, qc.l, qc.qx.nb, qc.qx.mb, qc.qz.mb,
-                qc.qx.num_groups, qc.qz.num_groups, dcx, dcz, dvx, dvz, int(num_iter),
-                CN_TYPES.index(cn_type), PHI_CODES[phi_impl], ctypes.c_float(factor),
-                THREADS, smem, stream,
+                tab.data_ptr(), b, n, mx, mz, qc.qx.num_edges + qc.qz.num_edges, int(num_iter),
+                *_kernel_codes(cn_type, phi_impl, plan.instance), ctypes.c_float(factor),
+                plan.threads, plan.samples_per_block, plan.smem_bytes, stream,
             )
         if err != 0:
             raise RuntimeError(f"bp4_qc kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")

@@ -207,3 +207,102 @@ def test_probe_phi_fast_mode(card, fn):
     assert probes.launches[fn.__name__] == before + 1
     assert bool(torch.isfinite(out).all())
     assert float((out.double() - probes.phi_reference(x)).abs().max()) < 1.0
+
+
+# The redesigned K1/K2: bit for bit against their plain versions on the
+# specialised instances ((6, 3): the GHP codes; (8, 4): GB-48) and on the
+# generic one (reached through the launch plan's instance override), in
+# both launch regimes (n882 at B=3 small, B=2000 large) and on ragged
+# batches (B=1, 5, 257: not a multiple of the samples per block).
+EXACT_SHAPES = [("n882", 3), ("n882", 2000), ("n882", 1), ("n882", 257), ("gb48", 257), ("ghp21", 5)]
+
+
+def _qc_inputs(qc, b, card, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    llr = torch.randn((3, qc.n, b), generator=g, device=card) * 2.0
+    sx = torch.randint(0, 2, (qc.qx.mb * qc.l, b), generator=g, device=card).float()
+    sz = torch.randint(0, 2, (qc.qz.mb * qc.l, b), generator=g, device=card).float()
+    return llr, sx, sz
+
+
+def _k1_exact(qc, llr, sx, sz, iters, plan, cases):
+    for cn_type, phi_impl in cases:
+        before = bp4_qc.launches
+        out = bp4_qc._launch_kernel(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl, plan)
+        assert bp4_qc.launches == before + 1
+        ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl=phi_impl)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r), (cn_type, phi_impl, plan, float((o - r).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generic", [False, True], ids=["specialised", "generic"])
+@pytest.mark.parametrize("code,batch", EXACT_SHAPES)
+def test_bp4_qc_kernel_bit_exact(card, code, batch, generic):
+    qc = tc.qc_pair_from_code(CODES[code]())
+    plan = bp4_qc._launch_plan(qc, batch, instance=(0, 0) if generic else None)
+    assert (plan.instance == (0, 0)) == generic
+    if code == "n882":
+        assert plan.regime == ("large" if batch == 2000 else "small")
+    _k1_exact(qc, *_qc_inputs(qc, batch, card, 8), 12, plan, CASES)
+
+
+@pytest.mark.gpu
+def test_bp4_qc_kernel_bit_exact_bench_prepass(card):
+    """[[1270,28]] at the bench prepass's B=20480 x 12, large regime."""
+    qc = tc.qc_pair_from_code(tc.ghp_1270_28())
+    plan = bp4_qc._launch_plan(qc, 20480)
+    assert plan.regime == "large"
+    _k1_exact(qc, *_qc_inputs(qc, 20480, card, 9), 12, plan, CASES[:1])
+
+
+def _k2_exact(spec, llr, syn, iters, plan, cn_types):
+    for cn_type in cn_types:
+        before = bp2_qc.launches
+        out = bp2_qc._launch_kernel(spec, llr, syn, iters, cn_type, 0.8, plan)
+        assert bp2_qc.launches == before + 1
+        ref = bp2_qc.bp2_qc_logits_plain(spec, llr, syn, iters, cn_type, 0.8)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (cn_type, plan, float((out - ref).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generic", [False, True], ids=["specialised", "generic"])
+@pytest.mark.parametrize("code,batch", EXACT_SHAPES)
+def test_bp2_qc_kernel_bit_exact(card, code, batch, generic):
+    spec = tc.qc_pair_from_code(CODES[code]()).qx
+    g = torch.Generator(device=card).manual_seed(10)
+    n, m = spec.nb * spec.l, spec.mb * spec.l
+    llr = torch.randn((n, batch), generator=g, device=card) * 3.0
+    syn = torch.randint(0, 2, (m, batch), generator=g, device=card).float()
+    for cn_type in ("boxplus-phi", "boxplus", "minsum"):
+        plan = bp2_qc._launch_plan(spec, batch, cn_type, instance=(0, 0) if generic else None)
+        _k2_exact(spec, llr, syn, 30, plan, [cn_type])
+
+
+@pytest.mark.gpu
+def test_bp2_qc_kernel_bit_exact_bp2_path(card):
+    """[[882,24]]'s hx at the bp2_path's B=20480 x 100 minsum, large regime."""
+    spec = tc.qc_pair_from_code(tc.ghp_882_24()).qx
+    g = torch.Generator(device=card).manual_seed(11)
+    llr = torch.randn((spec.nb * spec.l, 20480), generator=g, device=card) * 3.0
+    syn = torch.randint(0, 2, (spec.mb * spec.l, 20480), generator=g, device=card).float()
+    plan = bp2_qc._launch_plan(spec, 20480, "minsum")
+    assert plan.regime == "large"
+    _k2_exact(spec, llr, syn, 100, plan, ["minsum"])
+
+
+@pytest.mark.gpu
+def test_qc_occupancy_reported(card):
+    """The runtime's occupancy of the main path's and the bench's K1 plans
+    and the bp2_path's K2 plan: at least one block resident, no spills."""
+    for make, batch in [(tc.ghp_882_24, 256), (tc.ghp_1270_28, 20480)]:
+        qc = tc.qc_pair_from_code(make())
+        plan = bp4_qc._launch_plan(qc, batch)
+        blocks, regs, spill = bp4_qc._occupancy(qc, "boxplus-phi", None, plan)
+        assert blocks >= 1 and regs <= bp4_qc.K1_REGS and spill == 0, (batch, blocks, regs, spill)
+    spec = tc.qc_pair_from_code(tc.ghp_882_24()).qx
+    plan = bp2_qc._launch_plan(spec, 20480, "minsum")
+    blocks, regs, spill = bp2_qc._occupancy(spec, "minsum", plan)
+    assert blocks >= 1 and regs <= 40 and spill == 0, (blocks, regs, spill)
