@@ -8,13 +8,16 @@ nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode; the three
 probe kernels of csrc/probes.cu), holds each against its plain PyTorch
 version on the card, and drives the paths that run them or their
 neighbours: the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
-and the [[1270,28]] compacted workload of bench.py (K1); the binary BSC
-evaluation step on [[882,24]]'s hx (K2); the plain gather BP4 step on
-[[882,24]] (no kernel); feedback_gnn_tpu_torch.probes.main(), the
-thirteen probes of scripts/probe_pallas*.py.  Each decoding path is checked
-against a published error rate, each probe against its plain version, with
-every kernel's launch count set to 0 just before a path and read just
-after.  Prints each phase's seconds, the card's name and power limit, one
+and the [[1270,28]] compacted workload of cli/bench.py (K1); the evaluate
+CLI (cli/evaluate.py's run(), [[882,24]] at p=0.08 to 100 logical errors,
+K1); the rescue stage (K1's tf and accurate instances); the cascade on the
+gather backend (no kernel); the binary BSC evaluation step on
+[[882,24]]'s hx (K2); the plain gather BP4 step on [[882,24]] (no kernel);
+BP2 + OSD-0 and BP4 + OSD-0 through cli/osd_eval.py (no kernel);
+feedback_gnn_tpu_torch.probes.main(), the thirteen probes of
+scripts/probe_pallas*.py.  Each decoding path is checked against a
+published error rate, each probe against its plain version, with every
+kernel's launch count set to 0 just before a path and read just after.  Prints each phase's seconds, the card's name and power limit, one
 JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no
 result line, when there is no CUDA card or any phase fails.  Imports no
@@ -41,11 +44,32 @@ DEADLINE_S = 1100  # a hang prints every thread's stack and exits non-zero
 # The main path: __graft_entry__.entry()'s configuration, checked against
 # the TF original's BLER 7.92e-2 at p=0.12 (tests/test_cascade_e2e.py).
 LER_P, LER_REF, LER_SIGMAS, LER_STEPS = 0.12, 7.92e-2, 4.5, 16  # 16 x 256 = 4096 samples
-# throughput: steps back to back over WINDOWS windows of at least WINDOW_S
-# seconds each; the median window is reported with the spread of all
-WINDOWS, WINDOW_S = 5, 1.0
-# bench.py's workload
-BENCH = dict(batch=20480, p=0.05)
+# The evaluate CLI on [[882,24]], nG=3, p=0.08, B=20480, to 100 logical
+# errors: the TF original's LER 7.55e-5, the JAX package's 7.95e-5
+# (RESULTS.md).  Compaction sized by CascadeConfig's rule from the flagged
+# shares of [[882,24]] at p=0.08, stage1_flagged(..., 2048, (12, 64),
+# seed=1, device="cpu"): 33.2 % after the 12-iteration prepass, 5.3 % after
+# the full 64; the phase prints them again at its own batch.  About
+# 65 batches reach the target; MAX_ITER bounds a broken decoder's run.
+EVALUATE = dict(p=0.08, batch=20480, rounds=3, compact=0.40, prepass=12, rounds_cap=0.08,
+                target=100, max_mc_iter=300, ref_tf=7.55e-5, ref_jax=7.95e-5)
+# The rescue stage on the evaluate cascade at p=0.10 (no prepass: 62 % are
+# still flagged after 12 iterations there, 14.8 % after 64, by the same
+# stage1_flagged call at p=0.10, so level 1 holds 25 %), one seeded step
+# per setting; its undersized case is one
+# sample of capacity (tile 1: the default tile of 128 rounds 1/B up past
+# the ~50 samples still flagged after the cascade).
+RESCUE = dict(p=0.10, batch=20480, compact=0.25, seed=11)
+# The cascade on the gather backend, held as the main path is
+GATHER = dict(p=0.12, batch=4096, seed=12)
+# BP + OSD-0 (cli/osd_eval.py) against RESULTS.md: BP2 at p=0.05 to 100
+# errors, BP4 at p=0.10 for a fixed 6 batches (its gather BP4 takes ~1.5 s
+# a batch); OSD sub-batches sized from the flagged rates that bp2_path and
+# bp4_plain_path measure for the same BP.  The card's OSD-0 is held to the
+# CPU's on the first OSD_CHECK_SAMPLES samples of one sub-batch of each.
+OSD_BP2 = dict(p=0.05, batch=20480, ref=6.51e-4, target=100, max_mc_iter=40)
+OSD_BP4 = dict(p=0.10, batch=20480, ref=4.02e-4, steps=6)
+OSD_CHECK_SAMPLES = 64
 # K1 and K2 against their plain versions: bit for bit (the plain versions
 # repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
@@ -431,30 +455,9 @@ def check_rate(label, flagged, samples, ref, tf):
         raise AssertionError(f"{label}: flagged rate {rate} outside {LER_SIGMAS} sigma of {ref}")
 
 
-def timed_windows(step, args, batch):
-    """Syndromes/s of back-to-back steps over WINDOWS windows of at least
-    WINDOW_S seconds each (each window ends with a fetch of the last
-    step's counts and a synchronize); returns the per-window rates, the
-    per-window ms per step, and every step's output."""
-    rates, step_ms, outs = [], [], []
-    for _ in range(WINDOWS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        n = 0
-        while True:
-            outs.append(step(*args))
-            n += 1
-            if time.perf_counter() - t1 >= WINDOW_S:
-                break
-        int(outs[-1][0])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        rates.append(n * batch / dt)
-        step_ms.append(dt / n * 1e3)
-    return rates, step_ms, outs
-
-
 def report_rate(label, rates, step_ms, card):
+    from feedback_gnn_tpu_torch.cli.bench import WINDOW_S
+
     med = statistics.median(rates)
     print(f"{label}: {med:.1f} syndromes/s median of {len(rates)} windows of >= {WINDOW_S} s "
           f"(min {min(rates):.1f}, max {max(rates):.1f}; "
@@ -477,16 +480,115 @@ def run_main_path(device):
     return fn, gen, flagged, logical, LER_STEPS * 256
 
 
-def bench_step(graph, qc, params, batch):
-    from feedback_gnn_tpu_torch.decoders import CascadeConfig, sandwich_eval_step
+def sigmas(count, samples, ref):
+    """(rate, distance from ``ref`` in binomial sigmas at ``samples``)."""
+    rate = count / samples
+    return rate, abs(rate - ref) / (ref * (1 - ref) / samples) ** 0.5
 
-    cfg = CascadeConfig(num_iter1=64, num_iter2=16, num_rounds=5, p0=0.05,
-                        compact_fraction=0.15, stage1_prepass=12, round_fraction=0.05)
 
-    def step(gen, p):
-        return sandwich_eval_step(graph, [params], cfg, gen, p, batch, qc=qc, return_overflow=True)
+def stage1_flagged(graph, qc, p, batch, iters_list, seed, device):
+    """{iterations: flagged share} of one seeded depolarizing batch after
+    stage-1 BP4 of each length: the shares a compaction level must hold
+    (CascadeConfig's sizing rule), counted outside the cascade."""
+    from feedback_gnn_tpu_torch.channels import depolarizing_probs, pauli_iid
+    from feedback_gnn_tpu_torch.decoders.bp4_qc import bp4_decode_qc
+    from feedback_gnn_tpu_torch.decoders.cascade import prior_llr
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
 
-    return cfg, step
+    g = torch.Generator(device=device).manual_seed(seed)
+    nx, nz = pauli_iid(g, *depolarizing_probs(p), graph.n, batch)
+    pad = (0, 0, 0, graph.n_pad - graph.n)
+    nx, nz = (torch.nn.functional.pad(t.to(torch.int32), pad) for t in (nx, nz))
+    sx, sz = mod2_matmul(graph.hx, nz), mod2_matmul(graph.hz, nx)
+    llr = prior_llr(0.05, graph.n, batch, graph.n_pad, device=device)
+    shares = {}
+    for iters in iters_list:
+        r = bp4_decode_qc(graph, qc, llr, sx, sz, iters, need_logits=False)
+        est = torch.cat([mod2_matmul(graph.hz, r.x_hat), mod2_matmul(graph.hx, r.z_hat)])
+        shares[iters] = int((est != torch.cat([sz, sx])).any(0).sum()) / batch
+    return shares
+
+
+def osd_capacity(flagged_rate, batch):
+    """OSD sub-batch size for a BP flagged rate: the mean flagged count of
+    a batch plus 8 standard deviations, rounded up to 128."""
+    mean = flagged_rate * batch
+    sd = (batch * flagged_rate * (1 - flagged_rate)) ** 0.5
+    return -(-int(mean + 8 * sd + 1) // 128) * 128
+
+
+class OsdRecorder:
+    """Stands in for osd0_decode where the OSD steps call it (models.py,
+    decoders/osd.py) and keeps the first call's inputs and output."""
+
+    def __init__(self):
+        from feedback_gnn_tpu_torch import models
+        from feedback_gnn_tpu_torch.decoders import osd
+
+        self.modules, self.real, self.first = (models, osd), osd.osd0_decode, None
+
+    def __call__(self, llr, pcm, syndrome):
+        out = self.real(llr, pcm, syndrome)
+        if self.first is None:
+            self.first = (llr.clone(), pcm, syndrome.clone(), out.clone())
+        return out
+
+    def __enter__(self):
+        for m in self.modules:
+            m.osd0_decode = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.osd0_decode = self.real
+
+
+def osd_card_vs_cpu(label, rec, card):
+    """osd0_decode on the card against osd0_decode on the CPU, on the first
+    OSD_CHECK_SAMPLES samples of the recorded sub-batch (each sample's
+    elimination is its own); raise unless equal.  Returns the card's ms
+    for the whole sub-batch."""
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode
+
+    llr, pcm, syn, out = rec.first
+    k = min(OSD_CHECK_SAMPLES, llr.shape[0])
+    t1 = time.perf_counter()
+    cpu = osd0_decode(llr[:k].cpu(), pcm, syn[:, :k].cpu())
+    cpu_s = time.perf_counter() - t1
+    again = osd0_decode(llr[:k], pcm, syn[:, :k]).cpu()
+    ok = torch.equal(out[:k].cpu(), cpu) and torch.equal(again, cpu)
+    ms = time_ms(lambda: osd0_decode(llr, pcm, syn), reps=2)
+    print(f"  {label}: osd0_decode on the card vs the CPU, {k} of {llr.shape[0]} samples "
+          f"x {llr.shape[1]} columns, rank {syn.shape[0]}: {'equal' if ok else 'DIFFERENT'} "
+          f"(CPU {cpu_s:.2f} s); the whole sub-batch {ms:.3f} ms on {card}")
+    if not ok:
+        raise AssertionError(f"{label}: osd0_decode on the card differs from the CPU")
+    return ms
+
+
+def profile_sim_ler(label, step, p, batch, steps, device, card):
+    """The device idle share of sim_ler: the device's busy time over a short
+    sweep of ``steps`` batches (torch.profiler) against the same sweep's
+    unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from feedback_gnn_tpu_torch.sim import sim_ler
+
+    kw = dict(batch_size=batch, max_mc_iter=steps, num_target_block_errors=None, verbose=False,
+              device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim_ler(step, [p], **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        sim_ler(step, [p], **kw)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"profile {label}: sim_ler over {steps} batches: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f} on {card}")
 
 
 def probe_library(p):
@@ -618,12 +720,185 @@ def run_probes(device, card):
     return probe_rows
 
 
+def run_evaluate(codes, device, card, E=EVALUATE):
+    """cli/evaluate.py's run() on [[882,24]] to 100 logical errors; checks
+    the target, the overflow, the LER and K1's launches, prints the flagged
+    share at each compaction level and the throughput.  Returns the step
+    (for the profile) and its ms per batch."""
+    from feedback_gnn_tpu_torch.cli import evaluate
+    from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
+
+    graph, qc, _ = codes["n882"]
+    cfg = config_from_args(make_eval_parser().parse_args([
+        "-c", "n882", "-p", str(E["p"]), "-nG", str(E["rounds"]), "-bs", str(E["batch"]), "--qc-kernel",
+        "--compact", str(E["compact"]), "--prepass", str(E["prepass"]), "--rounds-cap", str(E["rounds_cap"]),
+        "--target-errors", str(E["target"]), "--max-mc-iter", str(E["max_mc_iter"]), "--device", str(device)]))
+    full = cfg.cascade.num_iter1
+    shares = stage1_flagged(graph, qc, E["p"], E["batch"], (E["prepass"], full), seed=8, device=device)
+    reset_counts()
+    res = evaluate.run(cfg)
+    counts = read_counts()
+    steps = int(res.num_blocks[0]) // E["batch"]
+    step_ms = float(res.runtime[0]) / steps * 1e3
+    logical, blocks = int(res.logical_errors[0]), int(res.num_blocks[0])
+    ler, sig_tf = sigmas(logical, blocks, E["ref_tf"])
+    _, sig_jax = sigmas(logical, blocks, E["ref_jax"])
+    print(f"evaluate [[882,24]] nG={E['rounds']} p={E['p']} B={E['batch']}: flagged share after the "
+          f"{E['prepass']}-iteration prepass {shares[E['prepass']]:.5f} (capacity {E['compact']}), after "
+          f"the full {full} {shares[full]:.5f} (capacity {E['rounds_cap']}), after the cascade "
+          f"{res.flagged_rate[0]:.3e}")
+    print(f"evaluate: logical {logical}/{blocks} LER={ler:.4e} in {steps} batches, status "
+          f"{int(res.status[0])}, overflow {int(res.overflow[0])}; TF original {E['ref_tf']} ({sig_tf:.2f} "
+          f"sigma), JAX package {E['ref_jax']} ({sig_jax:.2f} sigma); launches={counts}")
+    print(f"evaluate throughput: {res.throughput[0]:.1f} syndromes/s (sim_ler, {step_ms:.3f} ms per "
+          f"batch) on {card}")
+    if int(res.status[0]) != 4:
+        raise AssertionError(f"evaluate did not reach {E['target']} logical errors in {E['max_mc_iter']} batches")
+    if int(res.overflow[0]) != 0:
+        raise AssertionError(f"evaluate: compaction overflow {int(res.overflow[0])}")
+    if sig_tf >= LER_SIGMAS:
+        raise AssertionError(f"evaluate: LER {ler} outside {LER_SIGMAS} sigma of {E['ref_tf']}")
+    if counts != expected_counts(K1=steps * (2 + E["rounds"])):  # prepass, subset, rounds
+        raise AssertionError(f"kernel launches {counts} in {steps} evaluate batches")
+    return {"step": evaluate.make_step(cfg, device)[1], "ms": step_ms}
+
+
+def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
+    """One seeded step of the compacted cascade per rescue setting: none,
+    tf, tf then accurate at capacity 0.02, and tf at one sample of
+    capacity.  The flagged count never rises, the overflow is 0 at 0.02
+    and not at one sample, and K1 runs (1 + nG) launches per stage.
+    Returns the tf,accurate step, its ms, and the rescue capacity."""
+    from dataclasses import replace
+
+    from feedback_gnn_tpu_torch.decoders.cascade import CascadeConfig, _capacity, sandwich_eval_step
+
+    graph, qc, params = codes["n882"]
+    base = CascadeConfig(num_rounds=rounds, compact_fraction=R["compact"])
+    rows = {}
+    for rescue, fraction, tile in ((None, 0.02, 128), ("tf", 0.02, 128), ("tf,accurate", 0.02, 128),
+                                   ("tf", 1 / R["batch"], 1)):
+        cfg = replace(base, rescue_phi=rescue, rescue_fraction=fraction, qc_batch_tile=tile)
+        gen = torch.Generator(device=device).manual_seed(R["seed"])
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        flagged, logical, overflow = (int(o) for o in sandwich_eval_step(
+            graph, [params], cfg, gen, R["p"], R["batch"], qc=qc, return_overflow=True))
+        ms = (time.perf_counter() - t1) * 1e3
+        counts = read_counts()
+        stages = len(rescue.split(",")) if rescue else 0
+        print(f"rescue {rescue} (capacity {_capacity(fraction, R['batch'], tile)}) p={R['p']} "
+              f"B={R['batch']}: flagged={flagged} logical={logical} overflow={overflow}, {ms:.3f} ms, "
+              f"launches={counts} on {card}")
+        if counts != expected_counts(K1=(1 + rounds) * (1 + stages)):
+            raise AssertionError(f"rescue {rescue}: kernel launches {counts}, expected K1="
+                                 f"{(1 + rounds) * (1 + stages)}")
+        rows[(rescue, tile)] = (flagged, overflow, ms)
+    f_none, f_tf, f_both = (rows[(k, 128)][0] for k in (None, "tf", "tf,accurate"))
+    under = rows[("tf", 1)]
+    if not f_both <= f_tf <= f_none:
+        raise AssertionError(f"rescue raised the flagged count: {f_none}, {f_tf}, {f_both}")
+    if any(rows[(k, 128)][1] for k in (None, "tf", "tf,accurate")):
+        raise AssertionError("rescue: overflow at rescue_fraction 0.02")
+    if not (under[1] > 0 and under[0] <= f_none):
+        raise AssertionError(f"rescue at one sample of capacity: overflow {under[1]}, flagged {under[0]}")
+    cfg = replace(base, rescue_phi="tf,accurate")
+
+    def step(gen, p):
+        return sandwich_eval_step(graph, [params], cfg, gen, p, R["batch"], qc=qc, return_overflow=True)
+
+    return {"step": step, "ms": rows[("tf,accurate", 128)][2], "capacity": _capacity(0.02, R["batch"], 128)}
+
+
+def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
+    """One step of the evaluate step on the gather backend (no
+    --qc-kernel): LER within LER_SIGMAS of the main path's reference, no
+    kernel launched.  Returns the step and its ms."""
+    from feedback_gnn_tpu_torch.cli import evaluate
+    from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
+
+    cfg = config_from_args(make_eval_parser().parse_args(
+        ["-c", "n882", "-nG", str(rounds), "-bs", str(G["batch"]), "--device", str(device)]))
+    _, step = evaluate.make_step(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(G["seed"])
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flagged, logical = (int(o) for o in step(gen, G["p"]))
+    ms = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
+    ler, sig = sigmas(logical, G["batch"], LER_REF)
+    print(f"gather_cascade [[882,24]] nG={rounds} p={G['p']} B={G['batch']}: flagged={flagged} "
+          f"logical={logical} LER={ler:.5f} ref={LER_REF} ({sig:.2f} sigma), {ms:.3f} ms, "
+          f"launches={counts} on {card}")
+    if sig >= LER_SIGMAS:
+        raise AssertionError(f"gather_cascade: LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
+    if counts != expected_counts():
+        raise AssertionError(f"gather_cascade launched kernels: {counts}")
+    return {"step": step, "ms": ms}
+
+
+def run_osd(bp_rates, device, card, specs=None):
+    """cli/osd_eval.py's main() for bp2-osd (to 100 errors) and bp4-osd (a
+    fixed number of batches), each OSD sub-batch sized from ``bp_rates``,
+    the flagged rates of its BP; checks the LER, the overflow and that no
+    kernel ran, and holds the card's osd0_decode to the CPU's on one
+    recorded sub-batch.  Returns {mode: (step, argv, ms per batch, ms of
+    one osd0_decode)}."""
+    from feedback_gnn_tpu_torch.cli import osd_eval
+    from feedback_gnn_tpu_torch.codes import ghp_882_24
+
+    specs = specs or {"bp2-osd": OSD_BP2, "bp4-osd": OSD_BP4}
+    runs = {}
+    for mode, spec in specs.items():
+        cap = osd_capacity(bp_rates[mode], spec["batch"])
+        argv = ["--mode", mode, "-p", str(spec["p"]), "-bs", str(spec["batch"]), "--osd-cap", str(cap),
+                "--device", str(device)]
+        if "steps" in spec:  # a fixed number of batches
+            argv += ["--target-errors", str(10 ** 9), "--max-mc-iter", str(spec["steps"])]
+        else:  # to the target number of logical errors
+            argv += ["--target-errors", str(spec["target"]), "--max-mc-iter", str(spec["max_mc_iter"])]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with OsdRecorder() as rec:
+            res = osd_eval.main(argv)
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        logical, blocks = int(res.logical_errors[0]), int(res.num_blocks[0])
+        steps = blocks // spec["batch"]
+        ler, sig = sigmas(logical, blocks, spec["ref"])
+        step_ms = float(res.runtime[0]) / steps * 1e3
+        print(f"osd {mode} [[882,24]] p={spec['p']} B={spec['batch']} osd-cap {cap} (BP flagged rate "
+              f"{bp_rates[mode]:.5f}): logical {logical}/{blocks} LER={ler:.4e} ({sig:.2f} sigma from "
+              f"{spec['ref']}), BP-flagged {int(res.flagged_errors[0])}, overflow {int(res.overflow[0])}, "
+              f"status {int(res.status[0])}, {steps} batches, {step_ms:.3f} ms per batch, "
+              f"{res.throughput[0]:.1f} syndromes/s, peak memory {peak_gb:.2f} GB, launches={counts} "
+              f"on {card}")
+        osd_ms = osd_card_vs_cpu(f"osd {mode}", rec, card)
+        if "steps" in spec and steps != spec["steps"]:
+            raise AssertionError(f"{mode}: {steps} batches, expected {spec['steps']}")
+        if "steps" not in spec and int(res.status[0]) != 4:
+            raise AssertionError(f"{mode}: did not reach {spec['target']} logical errors in "
+                                 f"{spec['max_mc_iter']} batches")
+        if int(res.overflow[0]) != 0:
+            raise AssertionError(f"{mode}: OSD capacity overflow {int(res.overflow[0])}")
+        if sig >= LER_SIGMAS:
+            raise AssertionError(f"{mode}: LER {ler} outside {LER_SIGMAS} sigma of {spec['ref']}")
+        if counts != expected_counts():
+            raise AssertionError(f"{mode} launched kernels: {counts}")
+        step, _ = osd_eval.make_step(osd_eval.make_parser().parse_args(argv), ghp_882_24(), device)
+        runs[mode] = (step, argv, step_ms, osd_ms)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     from feedback_gnn_tpu_torch import _build, resolve_device
+    from feedback_gnn_tpu_torch.cli.bench import timed_windows  # throughput: bench.py's timing
     from feedback_gnn_tpu_torch.codes import build_graph, detect_qc_structure, ghp_882_24
     from feedback_gnn_tpu_torch.decoders import bp4_qc
     from feedback_gnn_tpu_torch.entry import load_code
@@ -695,73 +970,106 @@ def main() -> int:
     main_ms = report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
     phase("main_path", t0)
 
-    # 5. bench.py's workload: [[1270,28]], nG=5, prepass 12, compaction 0.15/0.05
+    # 5. bench.py's workload through cli/bench.py: [[1270,28]], nG=5,
+    # prepass 12, compaction 0.15/0.05
     t0 = time.perf_counter()
+    from feedback_gnn_tpu_torch.cli import bench
+
+    settings = bench.bench_settings({})  # the workload as published, no overrides
     graph, qc, params = codes["n1270"]
-    cfg, step = bench_step(graph, qc, params, BENCH["batch"])
+    cfg, step = settings.cfg, bench.make_step(graph, qc, params, settings)
     gen = torch.Generator(device=device).manual_seed(0)
-    step(gen, BENCH["p"])  # warm-up
+    step(gen, settings.p)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
-    rates, step_ms, counts = timed_windows(step, (gen, BENCH["p"]), BENCH["batch"])
+    rates, step_ms, counts = timed_windows(step, (gen, settings.p), settings.batch)
     launches_b = read_counts()
     flagged_b = sum(int(c[0]) for c in counts)
     logical_b = sum(int(c[1]) for c in counts)
     overflow = sum(int(c[2]) for c in counts)
-    bench_ms = report_rate(f"bench [[1270,28]] nG=5 p={BENCH['p']} B={BENCH['batch']}", rates, step_ms, card)
+    bench_ms = report_rate(f"bench [[1270,28]] nG=5 p={settings.p} B={settings.batch}", rates, step_ms, card)
     print(f"bench: {len(counts)} steps, flagged={flagged_b} logical={logical_b} overflow={overflow} "
-          f"launches={launches_b}")
+          f"launches={launches_b}; metric {bench.METRIC}, vs_baseline "
+          f"{statistics.median(rates) / bench.BASELINE_SYNDROMES_PER_S:.2f}")
     if overflow != 0:
         raise AssertionError(f"compaction overflow {overflow}")
     if launches_b != expected_counts(K1=len(counts) * (2 + cfg.num_rounds)):
         raise AssertionError(f"kernel launches {launches_b} in {len(counts)} bench steps")
     phase("bench", t0)
 
-    # 6. K1 against its plain version, and both times, at every shape the
-    # main path and the bench give it
+    # 6.-8. the evaluate CLI to 100 logical errors, the rescue stage, the
+    # evaluate step on the gather backend
+    t0 = time.perf_counter()
+    ev = run_evaluate(codes, device, card)
+    phase("evaluate", t0)
+    t0 = time.perf_counter()
+    rs = run_rescue(codes, device, card)
+    phase("rescue", t0)
+    t0 = time.perf_counter()
+    ga = run_gather_cascade(device, card)
+    phase("gather_cascade", t0)
+
+    # 9. K1 against its plain version, and both times, at every shape the
+    # main path, the bench, the evaluate CLI and the rescue give it
     t0 = time.perf_counter()
     from feedback_gnn_tpu_torch.decoders.cascade import _capacity
 
-    cap1 = _capacity(cfg.compact_fraction, BENCH["batch"], cfg.qc_batch_tile)
-    cap2 = _capacity(cfg.round_fraction, BENCH["batch"], cfg.qc_batch_tile)
-    shapes = [
-        ("n882", 256, 64), ("n882", 256, 16),
-        ("n1270", BENCH["batch"], 12), ("n1270", cap1, 64), ("n1270", cap2, 16),
+    E = EVALUATE
+    rescue_cap = rs["capacity"]
+    cap1 = _capacity(cfg.compact_fraction, settings.batch, cfg.qc_batch_tile)
+    cap2 = _capacity(cfg.round_fraction, settings.batch, cfg.qc_batch_tile)
+    ecap1 = _capacity(E["compact"], E["batch"], 128)
+    ecap2 = _capacity(E["rounds_cap"], E["batch"], 128)
+    shapes = [  # (code, batch, iterations, phi form, time the plan grid)
+        ("n882", 256, 64, None, True), ("n882", 256, 16, None, True),
+        ("n1270", settings.batch, 12, None, True), ("n1270", cap1, 64, None, True),
+        ("n1270", cap2, 16, None, True),
+        ("n882", E["batch"], E["prepass"], None, False), ("n882", ecap1, 64, None, False),
+        ("n882", ecap2, 16, None, False),
+        ("n882", rescue_cap, 64, "tf", False), ("n882", rescue_cap, 16, "tf", False),
+        ("n882", rescue_cap, 64, "accurate", False), ("n882", rescue_cap, 16, "accurate", False),
     ]
     timing = {}
-    for nm, batch, iters in shapes:
+    for nm, batch, iters, phi, with_grid in shapes:
         qc_s = codes[nm][1]
         llr, sx, sz = random_inputs(qc_s, batch, device, seed=2)
         plan = bp4_qc._launch_plan(qc_s, batch)
-        blocks, regs, spill = bp4_qc._occupancy(qc_s, "boxplus-phi", None, plan)
-        key = ("bp4_qc_kernel", bp4_qc._kernel_codes("boxplus-phi", None, plan.instance))
-        print(f"K1 {nm} B={batch} iters={iters}: instance (DC, DV)={plan.instance} boxplus-phi, "
+        blocks, regs, spill = bp4_qc._occupancy(qc_s, "boxplus-phi", phi, plan)
+        key = ("bp4_qc_kernel", bp4_qc._kernel_codes("boxplus-phi", phi, plan.instance))
+        label = f"{nm} B={batch} iters={iters}" + (f" phi={phi}" if phi else "")
+        print(f"K1 {label}: instance (DC, DV)={plan.instance} boxplus-phi, "
               f"{plan.regime} batch: {plan.threads} threads x {plan.samples_per_block} samples per "
               f"block ({plan.blocks(batch)} blocks), {plan.nodes_per_thread} nodes per thread, "
               f"{plan.smem_bytes} B shared; resident blocks per SM {blocks} (planned "
               f"{plan.blocks_per_sm}); registers {regs} (ptxas {registers.get(key)}), local {spill} B")
-        out = bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters)
-        k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters), reps=10)
-        ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters)
-        max_err = max(max_err, check_against_plain(f"{nm} B={batch} iters={iters}", out, ref))
+        out = bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters, phi_impl=phi)
+        k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters, phi_impl=phi), reps=10)
+        ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi)
+        max_err = max(max_err, check_against_plain(label, out, ref))
         del out
-        grid = time_plans(
-            f"K1 {nm} B={batch} iters={iters}",
-            plan_grid(lambda t, spb: bp4_qc._launch_plan(qc_s, batch, t, spb),
-                      max(qc_s.n, (qc_s.qx.mb + qc_s.qz.mb) * qc_s.l), bp4_qc.K1_MAX_THREADS),
-            plan, lambda p: bp4_qc._launch_kernel(qc_s, llr, sx, sz, iters, "boxplus-phi", 1.0, None, p),
-            ref, card)
+
+        def launch(p):
+            return bp4_qc._launch_kernel(qc_s, llr, sx, sz, iters, "boxplus-phi", 1.0, phi, p)
+
+        if with_grid:
+            g_ms = time_plans(
+                f"K1 {label}",
+                plan_grid(lambda t, spb: bp4_qc._launch_plan(qc_s, batch, t, spb),
+                          max(qc_s.n, (qc_s.qx.mb + qc_s.qz.mb) * qc_s.l), bp4_qc.K1_MAX_THREADS),
+                plan, launch, ref, card)[plan]
+        else:
+            g_ms = graph_ms(lambda: launch(plan), reps=GRID_REPS)
         del ref
-        p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters), reps=2)
-        b_ms, b_by = k1_bound_ms(qc_s, batch, iters)
-        timing[(nm, batch, iters)] = (k_ms, p_ms, b_ms, b_by)
-        old = PREVIOUS_K1_MS[(nm, batch, iters)]
-        print(f"K1 {nm} B={batch} iters={iters}: kernel {k_ms:.4f} ms (previous design {old:.4f} ms, "
-              f"ratio {k_ms / old:.3f}; in a CUDA graph {grid[plan]:.4f} ms), plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}) on {card}")
+        p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi), reps=2)
+        b_ms, b_by = k1_bound_ms(qc_s, batch, iters, phi_impl=phi)
+        timing[(nm, batch, iters, phi)] = (k_ms, p_ms, b_ms, b_by)
+        old = PREVIOUS_K1_MS.get((nm, batch, iters)) if phi is None else None
+        print(f"K1 {label}: kernel {k_ms:.4f} ms ("
+              + (f"previous design {old:.4f} ms, ratio {k_ms / old:.3f}; " if old else "")
+              + f"in a CUDA graph {g_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
     phase("k1_timing", t0)
 
-    # 7. the binary BSC path: bp2_bsc_eval_step on [[882,24]]'s hx, on K2
+    # 10. the binary BSC path: bp2_bsc_eval_step on [[882,24]]'s hx, on K2
     t0 = time.perf_counter()
     from feedback_gnn_tpu_torch.models import bp2_bsc_eval_step, bp4_plain_eval_step
 
@@ -789,7 +1097,7 @@ def main() -> int:
                          rates, step_ms, card)
     phase("bp2_path", t0)
 
-    # 8. the plain gather BP4 path on [[882,24]] (runs no kernel)
+    # 11. the plain gather BP4 path on [[882,24]] (runs no kernel)
     t0 = time.perf_counter()
     graph882 = codes["n882"][0]
 
@@ -819,7 +1127,14 @@ def main() -> int:
     bp4_ms = statistics.median(bp4_step_ms)
     phase("bp4_plain_path", t0)
 
-    # 9. K2 against its plain version, and both times, at the bp2_path shape
+    # 12. BP + OSD-0 through cli/osd_eval.py, OSD sub-batches sized from
+    # the flagged rates bp2_path and bp4_plain_path measured for their BP
+    t0 = time.perf_counter()
+    osd_runs = run_osd({"bp2-osd": flagged2 / (BP2["steps"] * BP2["batch"]),
+                        "bp4-osd": flagged4 / (BP4_PLAIN["steps"] * BP4_PLAIN["batch"])}, device, card)
+    phase("osd", t0)
+
+    # 13. K2 against its plain version, and both times, at the bp2_path shape
     t0 = time.perf_counter()
     from feedback_gnn_tpu_torch.decoders.bp2_qc import bp2_qc_logits, bp2_qc_logits_plain
 
@@ -851,23 +1166,36 @@ def main() -> int:
           f"{k2_plain_ms:.4f} ms, bound {k2_b_ms:.5f} ms ({k2_b_by}) on {card}")
     phase("k2_timing", t0)
 
-    # 10. the probes of scripts/probe_pallas*.py
+    # 14. the probes of scripts/probe_pallas*.py
     t0 = time.perf_counter()
     probe_rows = run_probes(device, card)
     phase("probes", t0)
 
-    # 11. where a step's device time goes
+    # 15. where a step's device time goes
     t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
-    profile_step(f"bench [[1270,28]] B={BENCH['batch']} p={BENCH['p']}", step, (gen, BENCH["p"]),
+    profile_step(f"bench [[1270,28]] B={settings.batch} p={settings.p}", step, (gen, settings.p),
                  bench_ms, card)
+    estep = ev["step"]
+    profile_step(f"evaluate [[882,24]] B={E['batch']} p={E['p']}", estep, (gen, E["p"]), ev["ms"], card)
+    profile_sim_ler(f"evaluate [[882,24]] B={E['batch']} p={E['p']}", estep, E["p"], E["batch"], 8,
+                    device, card)
+    profile_step(f"rescue tf,accurate [[882,24]] B={RESCUE['batch']} p={RESCUE['p']}", rs["step"],
+                 (gen, RESCUE["p"]), rs["ms"], card)
+    profile_step(f"gather_cascade [[882,24]] B={GATHER['batch']} p={GATHER['p']}", ga["step"],
+                 (gen, GATHER["p"]), ga["ms"], card)
     profile_step(f"bp2_path [[882,24]] hx B={BP2['batch']} p={BP2['p']}", bp2_step, (gen, BP2["p"]),
                  bp2_ms, card)
     profile_step(f"bp4_plain_path [[882,24]] B={BP4_PLAIN['batch']} p={BP4_PLAIN['p']}", bp4_step,
                  (gen, BP4_PLAIN["p"]), bp4_ms, card)
+    for mode, (ostep, argv, step_ms_o, osd_ms) in osd_runs.items():
+        calls = 2 if mode == "bp4-osd" else 1
+        print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms_o:.3f} ms batch "
+              f"(OSD share {calls * osd_ms / step_ms_o:.3f}) on {card}")
+        profile_step(f"osd {mode} [[882,24]]", ostep, (gen, float(argv[argv.index("-p") + 1])), step_ms_o, card)
     phase("profile", t0)
 
-    k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64)]
+    k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64, None)]
     kernels = {"kernels": [
         {
             "name": "bp4_qc_marginals",

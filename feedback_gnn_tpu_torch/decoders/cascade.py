@@ -1,15 +1,19 @@
 """Sandwich BP -> (GNN -> BP)^nG cascade: the paper's flagship decoder.
 
-The port of ``feedback_gnn_tpu/decoders/cascade.py`` on the quasi-cyclic
-backend: stage-1 BP4, then nG rounds of {syndrome of the current estimate,
-still-flagged tracking, feedback GNN, BP4-16, masked update of the
-still-flagged samples}, then flagged and logical accounting.  Every BP run
-goes through ``bp4_decode_qc``, i.e. the CUDA kernel on the card.
+The port of ``feedback_gnn_tpu/decoders/cascade.py``: stage-1 BP4, then nG
+rounds of {syndrome of the current estimate, still-flagged tracking,
+feedback GNN, BP4-16, masked update of the still-flagged samples}, then
+flagged and logical accounting.  With ``qc`` (a ``QCPair``) every BP run
+goes through ``bp4_decode_qc``, i.e. the CUDA kernel on the card; without
+it, through the gather decoder ``bp4_decode`` (plain PyTorch).
 
 Flagged-sample compaction (``compact_fraction``, ``stage1_prepass``,
 ``round_fraction``) gathers the still-flagged samples into a dense
 sub-batch with a stable sort, exactly as the JAX package does; per-sample
-results equal the uncompacted cascade while no capacity overflows.
+results equal the uncompacted cascade while no capacity overflows.  The
+rescue stage (``rescue_phi``) re-decodes the samples still flagged after
+the cascade with other phi formulations and adopts syndrome-consistent
+rescues.
 
 The GNN gets the semantic logit names: ``logit_hx`` is the per-Hx-row logit
 (z_logit of BP4 in stage mode), ``logit_hz`` the per-Hz-row logit (x_logit).
@@ -18,14 +22,16 @@ The GNN gets the semantic logit names: ``logit_hx`` is the per-Hx-row logit
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import warnings
+from dataclasses import dataclass, replace
 from typing import Any, Sequence
 
 import torch
 
 from ..channels.pauli import depolarizing_probs, pauli_fixed_weight, pauli_iid
 from ..ops.gf2mat import mod2_matmul
-from .bp4 import BP4Result
+from . import cn_update
+from .bp4 import BP4Result, bp4_decode
 from .bp4_qc import bp4_decode_qc, qc_supported
 from .gnn_feedback import feedback_gnn_apply
 
@@ -44,9 +50,10 @@ class CascadeConfig:
     cn_type: str = "boxplus-phi"
     num_rounds: int = 3  # nG
     p0: float = 0.05  # prior used for the uniform llr init
-    # compaction capacities are rounded up to a multiple of this tile, as
-    # in the JAX package (where it is the Pallas batch tile): the rounding
-    # decides which samples overflow, so the port keeps it
+    # on the QC backend, compaction and rescue capacities are rounded up to
+    # a multiple of this tile, as in the JAX package (where it is the Pallas
+    # batch tile; the gather backend rounds to 8): the rounding decides
+    # which samples overflow, so the port keeps it
     qc_batch_tile: int = 128
     # storage dtype of the decode's message state; only "float32" is ported
     qc_msg_dtype: str = "float32"
@@ -59,8 +66,17 @@ class CascadeConfig:
     # level-2 compaction: sub-batch of the GNN rounds, as a fraction of the
     # full batch; None = rounds run on the level-1 subset
     round_fraction: float | None = None
-    # formulation-ensemble rescue stage: not ported yet, must stay None
+    # formulation-ensemble rescue: after the cascade, re-decode the samples
+    # still flagged with another phi formulation (cn_update._PHI_IMPLS) and
+    # adopt the rescue estimate only where it is syndrome-consistent, so
+    # the flagged count never increases (the logical count may move either
+    # way).  A comma-separated list ("tf,accurate") chains stages, each on
+    # the remnant of the one before.  None = off.
     rescue_phi: str | None = None
+    # capacity of the rescue sub-batch as a fraction of the batch (tile-
+    # rounded); overflow samples keep the cascade's estimate and count in
+    # the overflow
+    rescue_fraction: float = 0.02
 
 
 def prior_llr(p0, n, batch, n_pad=None, device=None):
@@ -98,26 +114,30 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
                     phi_impl: str | None = None):
     """Decode given syndromes.  ``gt_sx``/``gt_sz`` are the target syndromes
     the estimate must reproduce (they equal syndrome_z/syndrome_x's ground
-    truth in evaluation).  ``qc`` (a codes.qc.QCPair) is required: the
-    gather BP backend is not ported yet.
+    truth in evaluation).  ``qc`` (a codes.qc.QCPair) selects the fused QC
+    decode for every BP run; None the gather decoder.  ``phi_impl`` is the
+    phi formulation of every BP run (None = the cn_update default); the
+    rescue stage passes its own through it.
 
     Returns (x_hat, z_hat) int32 [n_pad, B]; with ``with_overflow`` also a
     0-d int tensor counting DISTINCT flagged samples that did not fit a
-    compaction capacity (they keep their earlier estimate: fail-safe but
-    pessimistic).
+    capacity at any level (level 1, level 2 or rescue).  They keep their
+    earlier estimate: fail-safe but pessimistic.
     """
-    if cfg.rescue_phi is not None:
-        raise NotImplementedError("the rescue_phi stage is not ported yet")
-    if qc is None:
-        raise NotImplementedError("only the quasi-cyclic BP backend is ported; pass qc")
     if not qc_supported(cfg.cn_type):
         raise ValueError(f"unsupported cn_type {cfg.cn_type!r}")
     hz, hx = graph.hz, graph.hx
 
-    def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
-        return bp4_decode_qc(graph, qc, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
-                             need_logits=need_logits, msg_dtype=cfg.qc_msg_dtype,
-                             phi_impl=phi_impl)
+    if qc is not None:
+        def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
+            return bp4_decode_qc(graph, qc, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
+                                 need_logits=need_logits, msg_dtype=cfg.qc_msg_dtype,
+                                 phi_impl=phi_impl)
+    else:
+        def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
+            del need_logits  # the gather decoder always computes the logits
+            return bp4_decode(graph, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
+                              phi_impl=phi_impl)
 
     def syndromes_differ(x_hat, z_hat, gt):
         return (torch.cat([mod2_matmul(hz, x_hat), mod2_matmul(hx, z_hat)], dim=0) != gt).any(dim=0)
@@ -154,8 +174,17 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
     x_hat, z_hat = res.x_hat, res.z_hat
     b = x_hat.shape[-1]
     dev = x_hat.device
+    tile = cfg.qc_batch_tile if qc is not None else 8
 
     def finish(x_hat, z_hat, ov_mask):
+        # ov_mask [B] int32 {0,1}: a sample lost a capacity somewhere; the
+        # element-wise max over the levels counts each sample once
+        if cfg.rescue_phi is not None:
+            for impl in cfg.rescue_phi.split(","):
+                x_hat, z_hat, r_ov_mask = _ensemble_rescue(
+                    graph, gnn_params_list, cfg, impl.strip(), llr0, syndrome_x, syndrome_z,
+                    gt_sx, gt_sz, x_hat, z_hat, qc=qc, main_phi_impl=phi_impl)
+                ov_mask = torch.maximum(ov_mask, r_ov_mask)
         if with_overflow:
             return x_hat, z_hat, ov_mask.sum()
         return x_hat, z_hat
@@ -168,7 +197,6 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
         return finish(x_hat, z_hat, torch.zeros(b, dtype=torch.int32, device=dev))
 
     # ---- flagged-sample compaction ----
-    tile = cfg.qc_batch_tile
     cap = _capacity(cfg.compact_fraction, b, tile)
     flags0 = syndromes_differ(x_hat, z_hat, gt)
     idx, valid = _flagged_first(flags0, cap)
@@ -209,12 +237,14 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
 
 def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig,
                        generator: torch.Generator, p, batch: int, wt: int | None = None,
-                       qc=None, return_overflow: bool = False):
+                       return_full: bool = False, qc=None, return_overflow: bool = False):
     """Full Monte-Carlo evaluation step on the generator's device: sample
     the channel, compute syndromes, run the cascade, count errors.
 
-    Returns 0-d tensors (flagged_count, logical_count), plus the overflow
-    count with ``return_overflow``.
+    Returns 0-d tensors (flagged_count, logical_count), or with
+    ``return_full`` (s_hat [B, mz+mx], ls_hat [B, Rx+Rz]) batch-first over
+    the true (unpadded) rows.  With ``return_overflow`` a third output
+    counts compaction and rescue overflows (see ``sandwich_decode``).
     """
     n, n_pad = graph.n, graph.n_pad
     if wt is not None:
@@ -238,10 +268,63 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
     x_diff = noise_x ^ dec[0]
     z_diff = noise_z ^ dec[1]
 
-    s_hat = torch.cat([mod2_matmul(hz, x_diff), mod2_matmul(hx, z_diff)], dim=0)
-    ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)], dim=0)
-    flagged_count = (s_hat != 0).any(dim=0).sum()
-    logical_count = (ls_hat != 0).any(dim=0).sum()
+    sx, sz = mod2_matmul(hz, x_diff), mod2_matmul(hx, z_diff)
+    lsx, lsz = mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)
+    if return_full:
+        s_hat = torch.cat([sx[: graph.gz.num_cn], sz[: graph.gx.num_cn]], dim=0)
+        ls_hat = torch.cat([lsx[: graph.hx_perp_rows], lsz[: graph.hz_perp_rows]], dim=0)
+        return s_hat.T, ls_hat.T
+    flagged_count = (torch.cat([sx, sz], dim=0) != 0).any(dim=0).sum()
+    logical_count = (torch.cat([lsx, lsz], dim=0) != 0).any(dim=0).sum()
     if return_overflow:
         return flagged_count, logical_count, dec[2]
     return flagged_count, logical_count
+
+
+def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x, syndrome_z,
+                     gt_sx, gt_sz, x_hat, z_hat, qc=None, main_phi_impl=None):
+    """Re-decode the still-flagged samples with the ``rescue_impl`` phi
+    formulation and adopt the rescue estimate where it is syndrome-
+    consistent (CascadeConfig.rescue_phi).  Warns when the rescue
+    formulation equals the main one (``main_phi_impl``, None = the
+    cn_update default): a guaranteed no-op that still costs a sub-batch
+    cascade per batch.
+
+    Returns (x_hat, z_hat, ov_mask [B] int32), ov_mask marking the
+    still-flagged samples beyond the rescue capacity.
+    """
+    if rescue_impl not in cn_update._PHI_IMPLS:
+        raise ValueError(f"unknown rescue phi formulation {rescue_impl!r}")
+    effective_main = main_phi_impl if main_phi_impl is not None else cn_update._PHI_IMPL
+    if rescue_impl == effective_main:
+        warnings.warn(
+            f"rescue_phi formulation {rescue_impl!r} equals the main "
+            "cascade's phi formulation — the rescue stage is a guaranteed "
+            "no-op but still costs a full extra sub-batch cascade per "
+            "batch",
+            stacklevel=3,
+        )
+    hz, hx = graph.hz, graph.hx
+    b = x_hat.shape[-1]
+    tile = cfg.qc_batch_tile if qc is not None else 8
+    cap = _capacity(cfg.rescue_fraction, b, tile)
+
+    # still flagged after the cascade: estimate syndromes != ground truth
+    flags = (mod2_matmul(hz, x_hat) != gt_sx).any(dim=0) | (mod2_matmul(hx, z_hat) != gt_sz).any(dim=0)
+    idx, valid = _flagged_first(flags, cap)
+    covered = torch.zeros(b, dtype=torch.bool, device=flags.device).index_copy(0, idx, valid)
+    ov_mask = (flags & ~covered).to(torch.int32)
+
+    syn_x_s, syn_z_s = _take(syndrome_x, idx), _take(syndrome_z, idx)
+    gt_sx_s, gt_sz_s = _take(gt_sx, idx), _take(gt_sz, idx)
+    # the rescue sub-batch is already compacted: the plain cascade on it
+    rcfg = replace(cfg, compact_fraction=None, round_fraction=None, stage1_prepass=None,
+                   rescue_phi=None)
+    rx, rz = sandwich_decode(graph, gnn_params_list, rcfg, _take(llr0, idx), syn_x_s, syn_z_s,
+                             gt_sx_s, gt_sz_s, qc=qc, phi_impl=rescue_impl)
+
+    converged = (mod2_matmul(hz, rx) == gt_sx_s).all(dim=0) & (mod2_matmul(hx, rz) == gt_sz_s).all(dim=0)
+    adopt = (valid & converged)[None, :]
+    x_hat = x_hat.index_copy(1, idx, torch.where(adopt, rx, _take(x_hat, idx)))
+    z_hat = z_hat.index_copy(1, idx, torch.where(adopt, rz, _take(z_hat, idx)))
+    return x_hat, z_hat, ov_mask

@@ -8,29 +8,23 @@ the card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from . import REPO_ROOT, resolve_device
-from .codes import QuantumGraph, ghp_882_24, ghp_1270_28, qc_pair_from_code
+from . import resolve_device
+from .codes import QuantumGraph, qc_pair_from_code
+from .config import CODE_REGISTRY, build_code
 from .decoders import CascadeConfig, load_weights, sandwich_eval_step
 
 __all__ = ["entry", "load_code", "WEIGHTS"]
 
 # the JAX package's shipped trained weights, read in place
-_WEIGHTS_DIR = os.path.join(REPO_ROOT, "feedback_gnn_tpu", "weights")
-WEIGHTS = {
-    "n882": os.path.join(_WEIGHTS_DIR, "feedback_GNN_n882_k24_wt_4_60_iter_64_16_mixed.npz"),
-    "n1270": os.path.join(_WEIGHTS_DIR, "feedback_GNN_n1270_k28_wt_10_80_iter_64_16_mixed.npz"),
-}
-_BUILDERS = {"n882": ghp_882_24, "n1270": ghp_1270_28}
+WEIGHTS = {name: spec["weights"] for name, spec in CODE_REGISTRY.items()}
 
 
 def load_code(name: str, device):
     """(graph on ``device``, QCPair, shipped GNN parameters) of a paper code,
     ``"n882"`` or ``"n1270"``."""
-    code = _BUILDERS[name]()
+    code = build_code(name)
     graph = QuantumGraph.from_code(code, stage_mode=True).to(device)
     return graph, qc_pair_from_code(code), load_weights(WEIGHTS[name], device)
 

@@ -11,9 +11,12 @@ given to this package and to the JAX package.
   bp2_bsc_eval_step    binary syndrome BP over a BSC (gather decoder, or
                        the fused QC kernel with ``qc_spec``)
   bp4_plain_eval_step  plain BP4 over the depolarizing channel
+  bp4_osd_eval_step    BP4 + OSD-0 over the depolarizing channel
+  bp2_osd_eval_step    BP2 + OSD-0 over a BSC
   sandwich_eval_step   the feedback-GNN cascade (decoders/cascade.py)
 
-The OSD steps and ``gnn_bp4_eval_step`` are not ported yet.
+The OSD steps decode with the gather decoders, as the JAX package's do.
+``gnn_bp4_eval_step`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from .decoders.bp2 import bp2_decode
 from .decoders.bp2_qc import bp2_qc_logits
 from .decoders.bp4 import bp4_decode
 from .decoders.cascade import prior_llr, sandwich_eval_step  # noqa: F401
+from .decoders.cascade import _flagged_first
 from .decoders.graph_ops import pad_rows_to
+from .decoders.osd import bp_osd_correct, osd0_decode
 from .ops.gf2mat import mod2_matmul
 
 __all__ = [
@@ -34,6 +39,10 @@ __all__ = [
     "bp2_bsc_count",
     "bp4_plain_eval_step",
     "bp4_plain_count",
+    "bp4_osd_eval_step",
+    "bp4_osd_count",
+    "bp2_osd_eval_step",
+    "bp2_osd_count",
     "sandwich_eval_step",
 ]
 
@@ -139,3 +148,97 @@ def bp4_plain_eval_step(graph, generator: torch.Generator, p, batch: int, num_it
     noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
     return bp4_plain_count(graph, noise_x, noise_z, p, num_iter, cn_type, normalization_factor,
                            p0, accounting)
+
+
+def bp4_osd_count(graph, code, noise_x, noise_z, p, num_iter: int = 100, cn_type: str = "minsum",
+                  normalization_factor: float = 0.8, osd_compact_cap: int | None = None):
+    """Decode the syndromes of given Pauli errors ``noise_x``/``noise_z``
+    [n, B] with BP4 and OSD-0 on the BP-flagged samples, and count the
+    errors; the decode-and-count part of ``bp4_osd_eval_step``."""
+    n, batch = noise_x.shape
+    noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
+    noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
+    syndrome_x = mod2_matmul(graph.hx, noise_z)
+    syndrome_z = mod2_matmul(graph.hz, noise_x)
+    llr0 = prior_llr(p, n, batch, n_pad=graph.n_pad, device=noise_x.device)
+
+    res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, num_iter, cn_type, normalization_factor)
+    x_hat, z_hat, flagged, osd_overflow = bp_osd_correct(
+        graph, res, noise_x, noise_z, code.pivot_hx, code.pivot_hz, code.hx_basis, code.hz_basis,
+        compact_cap=osd_compact_cap)
+    x_diff = noise_x ^ x_hat
+    z_diff = noise_z ^ z_hat
+    # the logical check uses lz/lx, as the reference's BP4_OSD_Model does
+    ls_hat = torch.cat([mod2_matmul(graph.lz, x_diff), mod2_matmul(graph.lx, z_diff)], dim=0)
+    logical = (ls_hat != 0).any(dim=0).sum(dtype=torch.int32)
+    # first output: the BP-flagged samples routed to OSD (a diagnostic; the
+    # LER is the same either way)
+    if osd_compact_cap is not None:
+        return flagged.sum(dtype=torch.int32), logical, osd_overflow
+    return flagged.sum(dtype=torch.int32), logical
+
+
+def bp4_osd_eval_step(graph, code, generator: torch.Generator, p, batch: int, num_iter: int = 100,
+                      cn_type: str = "minsum", normalization_factor: float = 0.8,
+                      osd_compact_cap: int | None = None):
+    """BP4 + OSD-0 fallback over the depolarizing channel.  ``graph`` is a
+    ``QuantumGraph`` of tensors, ``code`` the ``CSSCode`` (its bases and
+    pivots).  With ``osd_compact_cap`` OSD runs on a dense flagged-only
+    sub-batch of that size and a third output counts the flagged samples
+    beyond it."""
+    px, py, pz = depolarizing_probs(p)
+    noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
+    return bp4_osd_count(graph, code, noise_x, noise_z, p, num_iter, cn_type, normalization_factor,
+                         osd_compact_cap)
+
+
+def bp2_osd_count(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, noise, p, num_iter: int = 100,
+                  cn_type: str = "minsum", normalization_factor: float = 0.8,
+                  osd_compact_cap: int | None = None):
+    """Decode the syndrome of a given BSC error pattern ``noise`` [n, B] with
+    BP2 and OSD-0 on the BP-flagged samples, and count the errors; the
+    decode-and-count part of ``bp2_osd_eval_step``."""
+    dev = noise.device
+    pcm = torch.as_tensor(pcm, dtype=torch.float32, device=dev)
+    logical_pcm = torch.as_tensor(logical_pcm, dtype=torch.float32, device=dev)
+    n, batch = noise.shape
+    noise = noise.to(torch.int32)
+    llr = torch.full((n, batch), _llr_const(p), dtype=torch.float32, device=dev)
+    syndrome = mod2_matmul(pcm, noise)
+
+    res = bp2_decode(pcm_graph, pad_rows_to(llr, pcm_graph.n_pad), syndrome, num_iter, cn_type,
+                     normalization_factor)
+    noise_hat = res.hard[:n]
+    flagged = (mod2_matmul(pcm, noise ^ noise_hat) != 0).any(dim=0)
+
+    # OSD on the soft output, in the "true llr" convention
+    osd_llr = -res.logits[:n]
+    reduced_s = syndrome[torch.as_tensor(pivot_pcm, device=dev)]
+    if osd_compact_cap is not None:
+        cap = min(batch, int(osd_compact_cap))
+        idx, valid = _flagged_first(flagged, cap)
+        osd_sub = osd0_decode(osd_llr.T[idx], pcm_basis, reduced_s[:, idx]).T  # [n, cap]
+        upd = torch.where(valid[None, :], osd_sub, noise_hat[:, idx])
+        noise_final = noise_hat.index_copy(1, idx, upd)
+        osd_overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
+    else:
+        noise_final = torch.where(flagged[None, :], osd0_decode(osd_llr.T, pcm_basis, reduced_s).T,
+                                  noise_hat)
+    ls_hat = mod2_matmul(logical_pcm, noise ^ noise_final)
+    logical = (ls_hat != 0).any(dim=0).sum(dtype=torch.int32)
+    if osd_compact_cap is not None:
+        return flagged.sum(dtype=torch.int32), logical, osd_overflow
+    return flagged.sum(dtype=torch.int32), logical
+
+
+def bp2_osd_eval_step(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, generator: torch.Generator,
+                      p, batch: int, num_iter: int = 100, cn_type: str = "minsum",
+                      normalization_factor: float = 0.8, osd_compact_cap: int | None = None):
+    """BP2 + OSD-0 over a BSC.  ``pcm`` (one of hx/hz) is the decoding
+    matrix and ``pcm_graph`` its ``TannerGraph`` of tensors, ``pcm_basis``
+    and ``pivot_pcm`` its full-rank basis and pivot rows, ``logical_pcm``
+    the matrix of the logical check.  ``osd_compact_cap``: see
+    ``bp4_osd_eval_step``."""
+    noise = bsc_sample(generator, p, (pcm.shape[1], batch))
+    return bp2_osd_count(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, noise, p, num_iter,
+                         cn_type, normalization_factor, osd_compact_cap)

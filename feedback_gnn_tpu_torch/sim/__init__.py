@@ -6,3 +6,5 @@ from .metrics import (
     hard_decisions,
     llr2mi,
 )
+from .montecarlo import SimResult, batch_seed, sim_ler
+from .plotting import PlotLER

@@ -34,6 +34,18 @@ GB48 = (24, [0, 2, 8, 15], [0, 2, 12, 17])
 SCHEDULE = dict(num_iter1=8, num_iter2=4, num_rounds=2)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread during each test: the suite runs in
+    several worker processes on a few cores, where torch's OpenMP threads
+    spin against each other and the many small ops here slow down a
+    hundredfold.  The thread count is restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Setup:
     def __init__(self, jcode, tcode, jparams, b, p, seed):
         self.jg = JQuantumGraph.from_code(jcode, stage_mode=True)
@@ -53,23 +65,25 @@ class Setup:
         self.syn_z = mod2_matmul(self.tg.hz, self.noise_x)
         self.llr0 = tcas.prior_llr(0.05, n, b, n_pad=n_pad)
 
-    def run_jax(self, **cfg):
+    def run_jax(self, qc=True, **cfg):
+        """JAX's decode, on the QC backend (the Pallas kernel in interpret
+        mode) or, with ``qc=False``, the gather one."""
         jcfg = jcas.CascadeConfig(**SCHEDULE, **cfg)
 
         @jax.jit
         def dec(llr, sx, sz):
             return jcas.sandwich_decode(self.jg, [self.jparams], jcfg, llr, sx, sz, sz, sx,
-                                        qc=self.jqc, with_overflow=True)
+                                        qc=self.jqc if qc else None, with_overflow=True)
 
         out = dec(*(jnp.asarray(t.numpy()) for t in (self.llr0, self.syn_x, self.syn_z)))
         return tuple(torch.tensor(np.asarray(o)) for o in out)
 
-    def run_port(self, llr0=None, cols=slice(None), **cfg):
+    def run_port(self, llr0=None, cols=slice(None), qc=True, **cfg):
         llr0 = self.llr0 if llr0 is None else llr0
         tcfg = tcas.CascadeConfig(**SCHEDULE, **cfg)
         sx, sz = self.syn_x[:, cols], self.syn_z[:, cols]
         return tcas.sandwich_decode(self.tg, [self.tparams], tcfg, llr0[..., cols], sx, sz, sz, sx,
-                                    qc=self.tqc, with_overflow=True)
+                                    qc=self.tqc if qc else None, with_overflow=True)
 
     def counts(self, x_hat, z_hat):
         xd, zd = self.noise_x ^ x_hat, self.noise_z ^ z_hat
@@ -77,17 +91,17 @@ class Setup:
         ls = torch.cat([mod2_matmul(self.tg.hx_perp, xd), mod2_matmul(self.tg.hz_perp, zd)])
         return int((s != 0).any(0).sum()), int((ls != 0).any(0).sum())
 
-    def assert_same_or_tie_bound(self, ref, out):
+    def assert_same_or_tie_bound(self, ref, out, **cfg):
         """Equal decisions per sample, or the sample is tie-bound (see the
-        module docstring; checked on the uncompacted schedule, where samples
-        decode independently)."""
+        module docstring; checked on the sample alone, decoded with ``cfg``
+        but without compaction, where samples decode independently)."""
         differ = ((ref[0] != out[0]).any(0) | (ref[1] != out[1]).any(0)).nonzero().flatten()
         for s in differ.tolist():
             cols = slice(s, s + 1)
-            base = self.run_port(cols=cols)
+            base = self.run_port(cols=cols, **cfg)
             moved = False
             for f in (1.0 + TIE_REL, 1.0 - TIE_REL):
-                x, z, _ = self.run_port(llr0=self.llr0 * f, cols=cols)
+                x, z, _ = self.run_port(llr0=self.llr0 * f, cols=cols, **cfg)
                 moved |= bool((x != base[0]).any() or (z != base[1]).any())
             assert moved, f"sample {s} differs from JAX and is not tie-bound"
 
@@ -166,12 +180,22 @@ def test_entry_runs_on_cpu():
     assert 0 <= int(flagged) <= 256 and 0 <= int(logical) <= 256
 
 
-def test_unported_paths_raise(gb48):
-    with pytest.raises(NotImplementedError, match="rescue_phi"):
-        gb48.run_port(rescue_phi="tf")
-    with pytest.raises(NotImplementedError, match="quasi-cyclic"):
-        tcas.sandwich_decode(gb48.tg, [gb48.tparams], tcas.CascadeConfig(), gb48.llr0,
-                             gb48.syn_x, gb48.syn_z, gb48.syn_z, gb48.syn_x)
+@pytest.mark.parametrize("unported", ["--data-shards 2", "--edge-shards 2", "--multihost",
+                                      "qc_msg_dtype=bfloat16"])
+def test_unported_paths_raise(gb48, unported):
+    """What stays unported raises: the sharded and multi-host layouts
+    (parsed, then refused by the evaluate CLI) and the bfloat16 message
+    carry of the QC decode."""
+    if unported == "qc_msg_dtype=bfloat16":
+        with pytest.raises(NotImplementedError, match="float32"):
+            gb48.run_port(qc_msg_dtype="bfloat16")
+        return
+    from feedback_gnn_tpu_torch.cli import evaluate
+    from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
+
+    cfg = config_from_args(make_eval_parser().parse_args(unported.split() + ["--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        evaluate.run(cfg)
 
 
 @pytest.mark.slow

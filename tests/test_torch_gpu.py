@@ -306,3 +306,39 @@ def test_qc_occupancy_reported(card):
     plan = bp2_qc._launch_plan(spec, 20480, "minsum")
     blocks, regs, spill = bp2_qc._occupancy(spec, "minsum", plan)
     assert blocks >= 1 and regs <= 40 and spill == 0, (blocks, regs, spill)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [64, 16])
+@pytest.mark.parametrize("phi_impl", ["tf", "accurate"])
+def test_bp4_qc_rescue_instances_bit_exact(card, phi_impl, iters):
+    """K1's tf and accurate instances at the rescue stage's shape: [[882,24]]
+    at B=512 (rescue_fraction 0.02 of 20480, tile-rounded), the stage's
+    64- and 16-iteration runs."""
+    qc = tc.qc_pair_from_code(tc.ghp_882_24())
+    plan = bp4_qc._launch_plan(qc, 512)
+    _k1_exact(qc, *_qc_inputs(qc, 512, card, 12), iters, plan, [("boxplus-phi", phi_impl)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [3, 0], ids=["tied", "continuous"])
+@pytest.mark.parametrize("side", ["hx_basis", "hz_basis"])
+def test_osd0_on_card_equals_cpu(card, side, levels):
+    """osd0_decode on the card equals osd0_decode on the CPU bit for bit on
+    [[882,24]]'s bases, with LLRs drawn from a few values (mostly tied) or
+    continuous."""
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode
+
+    basis = np.asarray(getattr(tc.ghp_882_24(), side))
+    rank, n = basis.shape
+    rng = np.random.default_rng(13 + levels)
+    b = 48
+    if levels:
+        llr = rng.normal(size=levels).astype(np.float32)[rng.integers(0, levels, (b, n))]
+    else:
+        llr = rng.normal(size=(b, n)).astype(np.float32)
+    syn = torch.as_tensor(basis @ rng.integers(0, 2, (n, b)) % 2)
+    cpu = osd0_decode(torch.as_tensor(llr), basis, syn)
+    out = osd0_decode(torch.as_tensor(llr, device=card), basis, syn.to(card))
+    assert out.is_cuda and torch.equal(out.cpu(), cpu)
+    assert np.array_equal(basis @ cpu.numpy().T % 2, syn.numpy())
