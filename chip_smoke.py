@@ -15,9 +15,13 @@ gather backend (no kernel); the binary BSC evaluation step on
 [[882,24]]'s hx (K2); the plain gather BP4 step on [[882,24]] (no kernel);
 BP2 + OSD-0 and BP4 + OSD-0 through cli/osd_eval.py (no kernel);
 feedback_gnn_tpu_torch.probes.main(), the thirteen probes of
-scripts/probe_pallas*.py.  Each decoding path is checked against a
-published error rate, each probe against its plain version, with every
-kernel's launch count set to 0 just before a path and read just after.  Prints each phase's seconds, the card's name and power limit, one
+scripts/probe_pallas*.py; training (K1 in both failure miners, each held
+bit for bit to its plain version; one train step held to the CPU's; the
+loss falling at full width; cli/train_from_scratch.py end to end and
+resumed from its artifacts; checkpoint round trips).  Each decoding path
+is checked against a published error rate, each probe against its plain
+version, with every kernel's launch count set to 0 just before a path and
+read just after.  Prints each phase's seconds, the card's name and power limit, one
 JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no
 result line, when there is no CUDA card or any phase fails.  Imports no
@@ -26,6 +30,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -34,6 +39,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -128,6 +134,36 @@ PHI_OPS = {"phi_softplus_expm1": 10, "phi_log_tanh": 6, "phi_exp_log1p": 10}
 # shared-memory bytes per element and iteration of the loops (csrc/probes.cu's
 # resident_iterations): the element read and written, and a gather's index read
 LOOP_SMEM_BYTES = {"gather_loop": 12, "take_along_loop": 12, "roll_loop": 8}
+
+# Training on [[882,24]] at full width (the shipped GNN's 20 message dims
+# and 40 hidden units, the published BP4-64 / GNN + BP4-16 schedule, B=100):
+# the K1 miners against their plain versions at weight 40 (the easy miner
+# at B=2048, the hard one with the shipped coarse GNN at B=1024, both
+# compacted to 2048 columns); the miners' rates at the curriculum's batch
+# of 8192 at weight 60, whose easy failures (BP4-64 flags ~3 % there, ~1 %
+# at 40) make the train batch; one train step's loss and gradients on the
+# card against the CPU at tests/test_training.py's 16/8 schedule
+# (loss_from 4), and at the published 64/16 printed only.  The check feeds
+# the CPU's stage 2 the card's stage-1 features: on these non-converging
+# samples each device's own BP4 trajectory from the uniform prior turns
+# ulp differences of the math libraries into other marginals (printed
+# beside).  Then the loss falling over 15 steps at lr 1e-3 from a fresh
+# init; the published step's rate and memory.
+TRAIN = dict(wt=40, easy_batch=2048, hard_batch=1024, iters=64, cap=2048, mine_batch=8192, mine_wt=60,
+             mine_reps=6, step_batch=100, check=dict(num_iter1=16, num_iter2=8, loss_from=4),
+             full=dict(num_iter1=64, num_iter2=16, loss_from=8), loss_rtol=1e-4, grad_rel=1e-3,
+             fall_steps=15, fall_lr=1e-3, rate_steps=20, seed=21)
+# The curriculum CLI end to end: every count cut, no width.  16 weights
+# 30..60 (the published 4..60 in steps of 2 from 30 on), 2 mining batches
+# of 8192 per weight (published 60), 512 easy / 16 hard failures kept per
+# weight (12000 / 3000), one epoch per model (coarse 4, final 1), the
+# evaluation at p=0.10 only, to 20 logical errors (0.10 and 0.09, to 100).
+CURRICULUM = ["--wt", "30", "60", "--mine-batches", "2", "--mine-batch-size", "8192",
+              "--mine-compact-cap", "2048", "--easy-cap", "512", "--hard-cap", "16",
+              "--coarse-epochs", "1", "--final-epochs", "1", "--batch-size", "100",
+              "--eval-p", "0.10", "--eval-batch", "20480", "--eval-target-errors", "20"]
+CURRICULUM_ARTIFACTS = ("n882_easy.npz", "n882_coarse_16_16.npz", "n882_hard.npz",
+                        "n882_final_64_16_mixed.npz", "n882_scratch_eval.json")
 
 
 def phase(name, t0):
@@ -892,6 +928,295 @@ def run_osd(bp_rates, device, card, specs=None):
     return runs
 
 
+@contextlib.contextmanager
+def plain_k1():
+    """K1's wrapper replaced by its plain version, which runs on the tensors'
+    own device: a path run against itself without the kernel."""
+    from feedback_gnn_tpu_torch.decoders import bp4_qc
+
+    wrapper = bp4_qc.bp4_qc_marginals
+
+    def plain(qc, llr, sx, sz, num_iter, cn_type="boxplus-phi", factor=1.0, msg_dtype="float32",
+              phi_impl=None):
+        return bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, num_iter, cn_type, factor, phi_impl)
+
+    bp4_qc.bp4_qc_marginals = plain
+    try:
+        yield
+    finally:
+        bp4_qc.bp4_qc_marginals = wrapper
+
+
+def check_miner(label, make, batch, launches, device, card, T=TRAIN):
+    """A K1 miner (compacted) against itself on K1's plain version, on the
+    same injected noise: the same kept count and columns, bit for bit, and
+    ``launches`` K1 launches.  Prints how far its flagged set agrees with
+    the gather miner's (phi's tanh form in K1, expm1 in the gather path)."""
+    gen = torch.Generator(device=device).manual_seed(T["seed"])
+    miner = make(compact_cap=T["cap"], qc=True)
+    nx, nz = miner.sample(gen, T["wt"], batch)
+    reset_counts()
+    out = miner.body(nx, nz)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with plain_k1():
+        ref = miner.body(nx, nz)
+    same = int(out[2]) == int(ref[2]) and all(torch.equal(o, r) for o, r in zip(out[:2], ref[:2]))
+    k1_flags = make(qc=True).body(nx, nz)[2]
+    gather_flags = make(qc=False).body(nx, nz)[2]
+    agree = float((k1_flags == gather_flags).float().mean())
+    print(f"train {label} miner [[882,24]] wt={T['wt']} B={batch} x{T['iters']} cap {T['cap']}: kept "
+          f"{int(out[2])} (plain version {int(ref[2])}), columns {'equal' if same else 'DIFFERENT'}; "
+          f"launches={counts}; flagged {int(k1_flags.sum())} K1 vs {int(gather_flags.sum())} gather, "
+          f"agreement {agree:.5f} on {card}", flush=True)
+    if not same:
+        raise AssertionError(f"the {label} miner on K1 differs from its plain version")
+    if counts != expected_counts(K1=launches):
+        raise AssertionError(f"{label} miner: kernel launches {counts}, expected K1={launches}")
+    return out
+
+
+def mining_rate(label, miner, device, card, T=TRAIN):
+    """Syndromes scanned per second by a compacted miner at the curriculum's
+    batch, queued as cli/train_from_scratch.mine_phase queues them.
+    Returns the rate and the first batch's output."""
+    gen = torch.Generator(device=device).manual_seed(T["seed"])
+    first = miner(gen, T["mine_wt"], T["mine_batch"])  # also the warm-up
+    int(first[2])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [miner(gen, T["mine_wt"], T["mine_batch"]) for _ in range(T["mine_reps"])]
+    kept = [int(o[2]) for o in outs]
+    dt = time.perf_counter() - t1
+    rate = T["mine_reps"] * T["mine_batch"] / dt
+    print(f"train {label} miner throughput wt={T['mine_wt']}: {rate:.1f} syndromes scanned/s "
+          f"({T['mine_reps']} batches of {T['mine_batch']}, {dt / T['mine_reps'] * 1e3:.3f} ms a batch, "
+          f"kept {kept}) on {card}")
+    return rate, first
+
+
+def step_grads(graph, cfg, params, nx, nz, feats=None):
+    """Loss and gradient leaves of one train step (frozen stage 1, stage 2,
+    backward), and the stage-1 features; ``feats`` replaces stage 1."""
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+    from feedback_gnn_tpu_torch.train.trainer import stage_one_features, stage_two_loss
+
+    leaves = flatten_with_paths(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+        leaf.grad = None
+    feats = feats if feats is not None else stage_one_features(graph, cfg, nx, nz)
+    loss, _ = stage_two_loss(params, graph, cfg, nx, nz, *feats)
+    loss.backward()
+    return loss.item(), {k: v.grad.detach().cpu() for k, v in leaves.items()}, feats
+
+
+def compare_steps(label, card_out, cpu_out):
+    """(relative loss difference, largest relative L2 error of a gradient leaf)."""
+    loss_rel = abs(card_out[0] - cpu_out[0]) / abs(cpu_out[0])
+    grad_rel = max(float((card_out[1][k] - g).norm() / g.norm()) for k, g in cpu_out[1].items())
+    print(f"  {label}: loss card {card_out[0]:.7f} CPU {cpu_out[0]:.7f} (relative {loss_rel:.3e}), largest "
+          f"gradient-leaf relative L2 error {grad_rel:.3e}", flush=True)
+    return loss_rel, grad_rel
+
+
+def run_train(codes, code882, device, card, T=TRAIN):
+    """Training on the card: the K1 miners against their plain versions, one
+    train step against the CPU, the loss falling at full width, rates, the
+    curriculum CLI end to end and resumed, checkpoints.  Returns the timing
+    rows of K1 at the miners' shape and a train step for the profile."""
+    from feedback_gnn_tpu_torch.cli import train_from_scratch
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.config import CODE_REGISTRY
+    from feedback_gnn_tpu_torch.decoders import (
+        bp4_qc, init_feedback_gnn, load_weights, params_from_numpy, save_reference_weights,
+    )
+    from feedback_gnn_tpu_torch.decoders.bp4 import hard_decision
+    from feedback_gnn_tpu_torch.decoders.cascade import prior_llr
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths, load_pytree, save_pytree
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+    from feedback_gnn_tpu_torch.train import (
+        TrainConfig, make_bp_failure_miner, make_cascade_failure_miner, make_optimizer, make_train_step,
+    )
+
+    graph, qc, shipped = codes["n882"]
+    coarse = load_weights(CODE_REGISTRY["n882"]["coarse_weights"], device)
+    shipped_cpu = load_weights(CODE_REGISTRY["n882"]["weights"], "cpu")
+
+    def easy(compact_cap=None, qc=False):
+        return make_bp_failure_miner(graph, num_iter=T["iters"], wt_max=60, compact_cap=compact_cap,
+                                     qc=codes["n882"][1] if qc else None)
+
+    def hard(compact_cap=None, qc=False):
+        return make_cascade_failure_miner(graph, coarse, num_iter1=T["iters"], num_iter2=T["iters"], wt_max=60,
+                                          compact_cap=compact_cap, qc=codes["n882"][1] if qc else None)
+
+    # 1. the K1 miners against their plain versions, and their rates
+    check_miner("easy", easy, T["easy_batch"], 1, device, card)
+    check_miner("hard", hard, T["hard_batch"], 2, device, card)
+    rates = {name: mining_rate(name, make(compact_cap=T["cap"], qc=True), device, card)
+             for name, make in (("easy", easy), ("hard", hard))}
+    mined = rates["easy"][1]
+
+    # K1 at the miners' shape: the curriculum's batch x 64 iterations, from the prior
+    gen = torch.Generator(device=device).manual_seed(T["seed"])
+    nx, nz = easy().sample(gen, T["wt"], T["mine_batch"])
+    pad = (0, 0, 0, graph.n_pad - graph.n)
+    sx = mod2_matmul(graph.hx, torch.nn.functional.pad(nz.to(torch.int32), pad))[: graph.gx.num_cn]
+    sz = mod2_matmul(graph.hz, torch.nn.functional.pad(nx.to(torch.int32), pad))[: graph.gz.num_cn]
+    llr = prior_llr(0.05, graph.n, T["mine_batch"], device=device)
+    k_args = (qc, llr, sx, sz, T["iters"])
+    out = bp4_qc.bp4_qc_marginals(*k_args)
+    k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(*k_args), reps=10)
+    check_against_plain(f"n882 B={T['mine_batch']} iters={T['iters']} (miners)", out,
+                        bp4_qc.bp4_qc_marginals_plain(*k_args))
+    p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(*k_args), reps=2)
+    b_ms, b_by = k1_bound_ms(qc, T["mine_batch"], T["iters"])
+    print(f"K1 n882 B={T['mine_batch']} iters={T['iters']} (miners): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+          f"ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
+    del out
+
+    # 2. one train step on the card against the CPU, same parameters and batch
+    batch = T["step_batch"]
+    nx, nz = (t[:, :batch].to(torch.float32) for t in mined[:2])
+    if int(mined[2]) < batch:
+        raise AssertionError(f"the easy miner kept {int(mined[2])} < {batch} failures")
+    cpu_graph = QuantumGraph.from_code(code882, stage_mode=True).to("cpu")
+
+    def fresh(dev):  # the shipped weights, a copy of their own per run
+        return params_from_numpy(shipped_cpu, dev)
+
+    checks = {}
+    for name, sched in (("16/8", T["check"]), ("64/16", T["full"])):
+        cfg = TrainConfig(**sched)
+        on_card = step_grads(graph, cfg, fresh(device), nx, nz)
+        on_cpu = step_grads(cpu_graph, cfg, fresh("cpu"), nx.cpu(), nz.cpu())
+        stage1 = [torch.equal(a.cpu(), b) for a, b in zip(on_card[2], on_cpu[2])]
+        decisions = [torch.equal(a.cpu(), b) for a, b in zip(hard_decision(*on_card[2][0]),
+                                                              hard_decision(*on_cpu[2][0]))]
+        print(f"train step {name} [[882,24]] B={batch}, card vs CPU: stage-1 features equal {stage1}, "
+              f"their hard decisions equal {decisions}")
+        full = compare_steps("whole step", on_card, on_cpu)
+        shared = compare_steps("stage 2 on the card's stage-1 features",
+                               on_card, step_grads(cpu_graph, cfg, fresh("cpu"), nx.cpu(), nz.cpu(),
+                                                   feats=[f.cpu() for f in on_card[2]]))
+        checks[name] = (full, shared)
+    full, shared = checks["16/8"]
+    if not (shared[0] <= T["loss_rtol"] and shared[1] <= T["grad_rel"]):
+        raise AssertionError(f"train step 16/8: card vs CPU loss {shared[0]:.3e} (rtol {T['loss_rtol']}), "
+                             f"gradients {shared[1]:.3e} (limit {T['grad_rel']})")
+
+    # 3. the loss falls at full width from a fresh init
+    cfg = TrainConfig(**T["full"], learning_rate=T["fall_lr"])
+    params = init_feedback_gnn(torch.Generator(device=device).manual_seed(T["seed"]))
+    opt = make_optimizer(cfg)
+    state = opt.init(params)
+    step = make_train_step(graph, cfg, opt)
+    losses = []
+    for _ in range(T["fall_steps"]):
+        params, state, loss, fb, bl = step(params, state, nx, nz)
+        losses.append(float(loss))
+    print(f"train loss over {T['fall_steps']} steps at 64/16 lr {T['fall_lr']} B={batch}: "
+          + ", ".join(f"{v:.4f}" for v in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # 4. rates and memory of the published step (64/16, lr 2e-4)
+    cfg = TrainConfig(**T["full"])
+    params = fresh(device)
+    opt = make_optimizer(cfg)
+    state = opt.init(params)
+    step = make_train_step(graph, cfg, opt)
+    step(params, state, nx, nz)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    saved = {}
+
+    def pack(t):  # what autograd keeps for the backward pass, each tensor once
+        saved[(t.data_ptr(), tuple(t.shape), t.dtype)] = t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step(params, state, nx, nz)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    t1 = time.perf_counter()
+    for _ in range(T["rate_steps"]):
+        float(step(params, state, nx, nz)[2])
+    dt = time.perf_counter() - t1
+    step_ms = dt / T["rate_steps"] * 1e3
+    counts = read_counts()
+    print(f"train step 64/16 B={batch}: {T['rate_steps'] / dt:.3f} steps/s, "
+          f"{T['rate_steps'] * batch / dt:.1f} samples/s ({step_ms:.3f} ms a step, one loss read a step); peak memory of a step "
+          f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held between "
+          f"steps; autograd saved {len(saved)} tensors, {sum(saved.values()) / 1e9:.3f} GB); "
+          f"launches={counts} on {card}")
+    if counts != expected_counts():
+        raise AssertionError(f"the train step launched kernels: {counts}")
+
+    # 5. checkpoints: npz and reference pickle round trips on the card
+    with tempfile.TemporaryDirectory() as d:
+        save_pytree(params, os.path.join(d, "p.npz"))
+        back = load_pytree(os.path.join(d, "p.npz"), like=params)
+        save_reference_weights(params, os.path.join(d, "p.pkl"))
+        back2 = load_weights(os.path.join(d, "p.pkl"), device)
+        flat = flatten_with_paths(params)
+        same = all(torch.equal(flat[k], v) and v.device == flat[k].device
+                   for tree in (back, back2) for k, v in flatten_with_paths(tree).items())
+    print(f"train checkpoints: save_pytree/load_pytree and save_reference_weights/load_weights on the card "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("a checkpoint round trip changed the parameters")
+
+    # 6. the curriculum CLI, then again from its artifacts
+    with tempfile.TemporaryDirectory() as d:
+        argv = CURRICULUM + ["--out-dir", d, "--device", str(device)]
+        weights = range(int(CURRICULUM[1]), int(CURRICULUM[2]) + 1, 2)
+        mine_batches = int(CURRICULUM[CURRICULUM.index("--mine-batches") + 1])
+        eval_batch = int(CURRICULUM[CURRICULUM.index("--eval-batch") + 1])
+        reset_counts()
+        t1 = time.perf_counter()
+        res = train_from_scratch.main(argv)
+        first_s = time.perf_counter() - t1
+        counts = read_counts()
+        made = sorted(os.listdir(d))
+        eval_batches = sum(sum(r["blocks"]) for r in res.values()) // eval_batch
+        # easy: one launch a batch; hard: two; evaluation: 1 + nG=3 a batch
+        want = len(weights) * mine_batches * 3 + 4 * eval_batches
+        print(f"train_from_scratch [[882,24]] {' '.join(CURRICULUM)}: {first_s:.2f} s, artifacts {made}, "
+              f"launches={counts} (K1 counted from the code {want})")
+        for name, r in res.items():
+            print(f"  {name}: p={r['ps']} LER={r['ler']} errors={r['errors']} blocks={r['blocks']} "
+                  f"overflow={r['overflow']}")
+        if made != sorted(CURRICULUM_ARTIFACTS):
+            raise AssertionError(f"train_from_scratch wrote {made}")
+        if any(sum(r["overflow"]) for r in res.values()) or set(res) != {"trained", "shipped"}:
+            raise AssertionError(f"train_from_scratch evaluation: {res}")
+        if counts != expected_counts(K1=want):
+            raise AssertionError(f"train_from_scratch: kernel launches {counts}, expected K1={want}")
+        stamps = {a: os.stat(os.path.join(d, a)).st_mtime_ns for a in CURRICULUM_ARTIFACTS[:-1]}
+        reset_counts()
+        t1 = time.perf_counter()
+        again = train_from_scratch.main(argv + ["--skip-shipped-eval"])
+        again_s = time.perf_counter() - t1
+        counts = read_counts()
+        want = 4 * sum(again["trained"]["blocks"]) // eval_batch
+        kept = {a: os.stat(os.path.join(d, a)).st_mtime_ns for a in CURRICULUM_ARTIFACTS[:-1]} == stamps
+        print(f"train_from_scratch resumed: {again_s:.2f} s, artifacts "
+              f"{'untouched' if kept else 'REWRITTEN'}, "
+              f"trained LER {again['trained']['ler']} (first call {res['trained']['ler']}), launches={counts} "
+              f"(the evaluation's {want})")
+        if not kept or counts != expected_counts(K1=want) or again["trained"] != res["trained"]:
+            raise AssertionError("train_from_scratch did not resume from its artifacts")
+
+    def train_step():
+        return (step(params, state, nx, nz)[2],)
+
+    return {"k1": (k_ms, p_ms, b_ms, b_by), "step": train_step, "ms": step_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1171,7 +1496,12 @@ def main() -> int:
     probe_rows = run_probes(device, card)
     phase("probes", t0)
 
-    # 15. where a step's device time goes
+    # 15. training: the K1 miners, the train step, the curriculum CLI
+    t0 = time.perf_counter()
+    tr = run_train(codes, code882, device, card)
+    phase("train", t0)
+
+    # 16. where a step's device time goes
     t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
     profile_step(f"bench [[1270,28]] B={settings.batch} p={settings.p}", step, (gen, settings.p),
@@ -1193,6 +1523,7 @@ def main() -> int:
         print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms_o:.3f} ms batch "
               f"(OSD share {calls * osd_ms / step_ms_o:.3f}) on {card}")
         profile_step(f"osd {mode} [[882,24]]", ostep, (gen, float(argv[argv.index("-p") + 1])), step_ms_o, card)
+    profile_step(f"train step 64/16 [[882,24]] B={TRAIN['step_batch']}", tr["step"], (), tr["ms"], card)
     phase("profile", t0)
 
     k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64, None)]

@@ -13,6 +13,14 @@ The slot-major CN updates (``cn_update_phi``, ``cn_update_tanh``,
 codes/graph.py, the syndrome as +-1 ``[c_pad, B]`` and the slot mask
 ``[dc, c_pad]``; pad slots come out as exact zeros.  The per-plane CN rules
 of the quasi-cyclic decoders live beside their kernels (decoders/bp4_qc.py).
+
+Gradients (training differentiates the gather decoder) follow JAX's rules
+where the two frameworks differ at exact ties: ``clip`` passes 1/2 of the
+gradient at a bound, as ``jnp.clip`` does (``torch.clamp`` passes all of
+it), and ``softplus`` has slope 1/2 at 0.  Ties are common at the atanh
+clip, where float32 has few values below 1.  The forward values are those
+of ``torch.clamp``.  The stop-gradients sit where JAX puts them: on the
+sign of the phi rule's and min-sum's outputs.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
-    "phi", "boxplus_rows", "softplus", "cn_update_phi", "cn_update_tanh", "cn_update_minsum",
+    "phi", "boxplus_rows", "softplus", "clip", "cn_update_phi", "cn_update_tanh", "cn_update_minsum",
     "CN_UPDATES",
 ]
 
@@ -45,10 +53,38 @@ _PHI_IMPLS = ("expm1", "tf", "accurate")
 _PHI_IMPL = "expm1"  # the module default that ``impl=None`` selects
 
 
+class _Clip(torch.autograd.Function):
+    """``x.clamp(lo, hi)`` whose gradient is 1/2 at a bound."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return x.clamp(lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        scale = torch.ones_like(x)
+        for bound, outside in zip(ctx.bounds, (x.__lt__, x.__gt__)):
+            if bound is not None:
+                scale = torch.where(outside(bound), 0.0, torch.where(x == bound, 0.5, scale))
+        return grad * scale, None, None
+
+
+def clip(x, lo=None, hi=None):
+    """``x.clamp(lo, hi)``; where autograd records, with ``jnp.clip``'s
+    gradient (1/2 at a bound)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Clip.apply(x, lo, hi)
+    return x.clamp(lo, hi)
+
+
 def softplus(x):
-    """log(1 + e^x) with no threshold, as JAX's softplus computes it.
-    (``torch.nn.functional.softplus`` switches to the identity above 20.)"""
-    return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0.0)
+    """log(1 + e^x) with no threshold, as JAX's softplus computes it, and
+    its slope 1/2 at 0.  (``torch.nn.functional.softplus`` switches to the
+    identity above 20.)"""
+    return torch.log1p(torch.exp(-x.abs())) + clip(x, 0.0)
 
 
 def phi(x, impl: str | None = None):
@@ -58,7 +94,7 @@ def phi(x, impl: str | None = None):
         impl = _PHI_IMPL
     if impl not in _PHI_IMPLS:
         raise ValueError(f"unknown phi formulation {impl!r}")
-    x = x.clamp(PHI_CLIP_MIN, PHI_CLIP_MAX)
+    x = clip(x, PHI_CLIP_MIN, PHI_CLIP_MAX)
     if impl == "tf":
         out = softplus(x) - torch.log(torch.exp(x) - 1.0)
     elif impl == "accurate":
@@ -66,7 +102,7 @@ def phi(x, impl: str | None = None):
         out = torch.log1p(e) - torch.log1p(-e)
     else:
         out = softplus(x) - torch.log(torch.expm1(x))
-    return out.clamp(PHI_CLIP_MIN, PHI_CLIP_MAX)
+    return clip(out, PHI_CLIP_MIN, PHI_CLIP_MAX)
 
 
 def _sign_no_zero(msg):
@@ -106,14 +142,14 @@ def cn_update_tanh(msg_cn, syndrome_pm, mask):
     prod = torch.prod(t, dim=0) * syndrome_pm  # [c_pad, B]
     out = t**-1 * prod[None]
     out = torch.where(out.abs() < 1e-7, 0.0, out)
-    out = out.clamp(-ATANH_CLIP, ATANH_CLIP)
+    out = clip(out, -ATANH_CLIP, ATANH_CLIP)
     return 2.0 * torch.atanh(out) * m
 
 
 def cn_update_minsum(msg_cn, syndrome_pm, mask):
     """Extrinsic normalized min-sum with duplicate-min detection."""
     m = mask[:, :, None]
-    msg = msg_cn.clamp(-LLR_MAX, LLR_MAX)
+    msg = clip(msg_cn, -LLR_MAX, LLR_MAX)
 
     sign_val = torch.where(m > 0, _sign_no_zero(msg), 1.0)
     sign_node = torch.prod(sign_val, dim=0) * syndrome_pm

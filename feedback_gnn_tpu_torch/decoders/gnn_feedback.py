@@ -18,13 +18,18 @@ Layout is batch-last: h_vn is [3, n, B], logits are [num_cn, B].
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
 import torch
 
 from ..codes.graph import TannerGraph
-from ..ops.dense import dense_bl
+from ..ops.dense import dense_bl, init_dense, init_mlp, mlp_bl
 
-__all__ = ["init_feedback_gnn", "feedback_gnn_apply", "load_weights", "params_from_numpy"]
+__all__ = [
+    "init_feedback_gnn", "feedback_gnn_apply", "load_weights", "load_reference_weights",
+    "save_reference_weights", "params_from_numpy",
+]
 
 
 def params_from_numpy(tree, device=None):
@@ -38,44 +43,51 @@ def params_from_numpy(tree, device=None):
     return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
-def _init_dense(generator, fan_in, fan_out, zeros=False):
-    """Keras Dense defaults: glorot-uniform kernel, ones bias."""
-    dev = generator.device
-    if zeros:
-        kernel = torch.zeros((fan_in, fan_out), device=dev)
-    else:
-        limit = (6.0 / (fan_in + fan_out)) ** 0.5
-        u = torch.rand((fan_in, fan_out), generator=generator, device=dev)
-        kernel = u * (2.0 * limit) - limit
-    return {"kernel": kernel, "bias": torch.ones((fan_out,), device=dev)}
-
-
 def init_feedback_gnn(generator: torch.Generator, num_msg_dims: int = 20,
                       num_hidden_units: int = 40, num_mlp_layers: int = 2):
     """Fresh parameters of the reference architecture on the generator's
     device (llr_inv_embed has a zero kernel and ones bias)."""
     hidden = [num_hidden_units] * (num_mlp_layers - 1)
-
-    def mlp(fan_in, units):
-        layers, prev = [], fan_in
-        for u in units:
-            layers.append(_init_dense(generator, prev, u))
-            prev = u
-        return layers
-
     return {
-        "llr_inv_embed": _init_dense(generator, num_hidden_units, 3, zeros=True),
+        "llr_inv_embed": init_dense(generator, num_hidden_units, 3, kernel_init="zeros"),
         # edge MLPs, input = 1 (cn logit) + 3 (h_vn)
-        "msg_mlp_x": mlp(4, hidden + [num_msg_dims]),
-        "msg_mlp_z": mlp(4, hidden + [num_msg_dims]),
+        "msg_mlp_x": init_mlp(generator, 4, hidden + [num_msg_dims]),
+        "msg_mlp_z": init_mlp(generator, 4, hidden + [num_msg_dims]),
         # embed MLP, input = 2*msg_dims + 3
-        "embed_mlp": mlp(2 * num_msg_dims + 3, hidden),
+        "embed_mlp": init_mlp(generator, 2 * num_msg_dims + 3, hidden),
     }
 
 
+def load_reference_weights(path: str, device=None):
+    """Parameters from a reference weight pickle: the 12-array Keras
+    ``get_weights()`` list [llr_inv_embed K, b, msg_mlp_x l0 K, b, l1 K, b,
+    msg_mlp_z l0 K, b, l1 K, b, embed_mlp l0 K, b]."""
+    with open(path, "rb") as f:
+        w = [np.asarray(a, np.float32) for a in pickle.load(f)]
+    if len(w) != 12:
+        raise ValueError(f"{path}: expected 12 arrays, got {len(w)}")
+    layers = [{"kernel": w[i], "bias": w[i + 1]} for i in range(0, 12, 2)]
+    tree = {"llr_inv_embed": layers[0], "msg_mlp_x": layers[1:3], "msg_mlp_z": layers[3:5],
+            "embed_mlp": layers[5:]}
+    return params_from_numpy(tree, device)
+
+
+def save_reference_weights(params, path: str):
+    """Export parameters to the reference pickle format (float32 numpy
+    arrays in the Keras order)."""
+    layers = [params["llr_inv_embed"], *params["msg_mlp_x"], *params["msg_mlp_z"], *params["embed_mlp"]]
+    w = [np.asarray(torch.as_tensor(layer[k]).detach().cpu(), np.float32)
+         for layer in layers for k in ("kernel", "bias")]
+    with open(path, "wb") as f:
+        pickle.dump(w, f)
+
+
 def load_weights(path: str, device=None):
-    """Feedback-GNN parameters from an ``.npz`` checkpoint in the JAX
-    package's format (``feedback_gnn_tpu/weights/*.npz``)."""
+    """Feedback-GNN parameters from either format: an ``.npz`` checkpoint in
+    the JAX package's key layout (``feedback_gnn_tpu/weights/*.npz``,
+    io/checkpoint.py) or a reference 12-array pickle."""
+    if not path.endswith(".npz"):
+        return load_reference_weights(path, device)
     with np.load(path, allow_pickle=False) as data:
         def g(k):
             return data[k]
@@ -93,17 +105,12 @@ def load_weights(path: str, device=None):
 
 def _mlp_tanh(x, layers):
     """Hidden layers tanh, last layer linear."""
-    for i, layer in enumerate(layers):
-        act = torch.tanh if i < len(layers) - 1 else None
-        x = dense_bl(x, layer["kernel"], layer.get("bias"), act)
-    return x
+    return mlp_bl(x, layers, [torch.tanh] * (len(layers) - 1) + [None])
 
 
 def _mlp_all_tanh(x, layers):
     """The embed MLP keeps the activation on every layer."""
-    for layer in layers:
-        x = dense_bl(x, layer["kernel"], layer.get("bias"), torch.tanh)
-    return x
+    return mlp_bl(x, layers, [torch.tanh] * len(layers))
 
 
 def _vn_mean(messages, graph: TannerGraph):

@@ -86,7 +86,9 @@ def test_port_imports_no_jax():
         "for name in ['entry', 'models', 'sim.metrics', 'channels.bsc', 'decoders.bp2',\n"
         "             'decoders.bp2_qc', 'decoders.graph_ops', 'decoders.bp4', 'probes',\n"
         "             'config', 'sim.montecarlo', 'sim.plotting', 'decoders.osd',\n"
-        "             'cli.evaluate', 'cli.osd_eval', 'cli.bench']:\n"
+        "             'cli.evaluate', 'cli.osd_eval', 'cli.bench', 'train.loss', 'train.trainer',\n"
+        "             'train.data', 'io.checkpoint', 'cli.train', 'cli.train_from_scratch',\n"
+        "             'cli.generate_dataset']:\n"
         "    assert pkg.__name__ + '.' + name in mods, name\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"

@@ -342,3 +342,98 @@ def test_osd0_on_card_equals_cpu(card, side, levels):
     out = osd0_decode(torch.as_tensor(llr, device=card), basis, syn.to(card))
     assert out.is_cuda and torch.equal(out.cpu(), cpu)
     assert np.array_equal(basis @ cpu.numpy().T % 2, syn.numpy())
+
+
+# ---- training: the K1 miners and the train step --------------------------------
+
+
+@pytest.fixture(scope="module")
+def n882_training():
+    from feedback_gnn_tpu_torch.entry import load_code
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return load_code("n882", torch.device("cuda")), tc.ghp_882_24()
+
+
+def _plain_k1(monkeypatch):
+    """K1's wrapper replaced by its plain version on the card's tensors."""
+    def plain(qc, llr, sx, sz, num_iter, cn_type="boxplus-phi", factor=1.0, msg_dtype="float32",
+              phi_impl=None):
+        return bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, num_iter, cn_type, factor, phi_impl)
+
+    monkeypatch.setattr(bp4_qc, "bp4_qc_marginals", plain)
+
+
+def _miner(kind, graph, qc, device):
+    from feedback_gnn_tpu_torch.config import CODE_REGISTRY
+    from feedback_gnn_tpu_torch.decoders import load_weights
+    from feedback_gnn_tpu_torch.train import make_bp_failure_miner, make_cascade_failure_miner
+
+    if kind == "easy":
+        return make_bp_failure_miner(graph, num_iter=64, wt_max=60, compact_cap=2048, qc=qc)
+    coarse = load_weights(CODE_REGISTRY["n882"]["coarse_weights"], device)
+    return make_cascade_failure_miner(graph, coarse, num_iter1=64, num_iter2=64, wt_max=60, compact_cap=2048,
+                                      qc=qc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,batch,launches", [("easy", 2048, 1), ("hard", 1024, 2)])
+def test_k1_miner_matches_plain(card, n882_training, monkeypatch, kind, batch, launches):
+    """The K1 miners of the curriculum (wt 40, 64 iterations, compacted to
+    2048 columns) keep the same samples and columns as on K1's plain
+    version, bit for bit, with one K1 launch per BP run."""
+    (graph, qc, _), _ = n882_training
+    miner = _miner(kind, graph, qc, card)
+    nx, nz = miner.sample(torch.Generator(device=card).manual_seed(21), 40, batch)
+    before = bp4_qc.launches
+    out = miner.body(nx, nz)
+    assert bp4_qc.launches == before + launches
+    _plain_k1(monkeypatch)
+    ref = miner.body(nx, nz)
+    torch.cuda.synchronize()
+    assert out[0].is_cuda and out[0].dtype == torch.uint8
+    assert int(out[2]) == int(ref[2])
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(card, n882_training):
+    """One train step's loss (rtol 1e-4) and gradient leaves (relative L2
+    error <= 1e-3) on the card against the CPU, at tests/test_training.py's
+    16/8 schedule on B=100 failures mined at wt 60, from the shipped
+    weights.  Stage 2 on the CPU is fed the card's stage-1 features: the
+    mined samples are those BP does not converge on, and from the uniform
+    prior their stage-1 trajectories carry ulp differences between the two
+    devices' math libraries to O(1) differences in saturated marginals,
+    and to other hard decisions (ROADMAP C)."""
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.config import CODE_REGISTRY
+    from feedback_gnn_tpu_torch.decoders import load_weights, params_from_numpy
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+    from feedback_gnn_tpu_torch.train import TrainConfig
+    from feedback_gnn_tpu_torch.train.trainer import stage_one_features, stage_two_loss
+
+    (graph, qc, _), code = n882_training
+    out = _miner("easy", graph, qc, card)(torch.Generator(device=card).manual_seed(21), 60, 8192)
+    assert int(out[2]) >= 100
+    nx, nz = (t[:, :100].to(torch.float32) for t in out[:2])
+    cfg = TrainConfig(num_iter1=16, num_iter2=8, loss_from=4)
+    shipped = load_weights(CODE_REGISTRY["n882"]["weights"], "cpu")
+    cpu_graph = QuantumGraph.from_code(code, stage_mode=True).to("cpu")
+
+    def grads(g, device, x, z, feats=None):
+        params = params_from_numpy(shipped, device)
+        for leaf in flatten_with_paths(params).values():
+            leaf.requires_grad_(True)
+        feats = feats if feats is not None else stage_one_features(g, cfg, x, z)
+        loss, _ = stage_two_loss(params, g, cfg, x, z, *feats)
+        loss.backward()
+        return loss.item(), {k: v.grad.cpu() for k, v in flatten_with_paths(params).items()}, feats
+
+    on_card = grads(graph, card, nx, nz)
+    assert all(f.is_cuda and bool(torch.isfinite(f).all()) for f in on_card[2])
+    on_cpu = grads(cpu_graph, "cpu", nx.cpu(), nz.cpu(), [f.cpu() for f in on_card[2]])
+    np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=1e-4)
+    for key, g in on_cpu[1].items():
+        assert float((on_card[1][key] - g).norm() / g.norm()) <= 1e-3, key
