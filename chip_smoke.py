@@ -18,7 +18,11 @@ feedback_gnn_tpu_torch.probes.main(), the thirteen probes of
 scripts/probe_pallas*.py; training (K1 in both failure miners, each held
 bit for bit to its plain version; one train step held to the CPU's; the
 loss falling at full width; cli/train_from_scratch.py end to end and
-resumed from its artifacts; checkpoint round trips).  Each decoding path
+resumed from its artifacts; checkpoint round trips); the fully-learned
+GNN_BP4 decoder at full width (the shipped trained weights' LERs against
+the JAX package's runs, card against CPU forward and one train step, the
+train step's rate, cli/train_gnn_bp4.py end to end) and the example CLIs
+(cli/qldpc_codes.py; cli/n1270.py --qc-kernel, K1).  Each decoding path
 is checked against a published error rate, each probe against its plain
 version, with every kernel's launch count set to 0 just before a path and
 read just after.  Prints each phase's seconds, the card's name and power limit, one
@@ -31,6 +35,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import faulthandler
 import json
 import os
@@ -162,6 +167,42 @@ CURRICULUM = ["--wt", "30", "60", "--mine-batches", "2", "--mine-batch-size", "8
               "--mine-compact-cap", "2048", "--easy-cap", "512", "--hard-cap", "16",
               "--coarse-epochs", "1", "--final-epochs", "1", "--batch-size", "100",
               "--eval-p", "0.10", "--eval-batch", "20480", "--eval-target-errors", "20"]
+# GNN_BP4 (decoders/gnn_full.py) at the full width of the JAX package's
+# trained runs (20/20/40, 8 iterations, mean, no bias, boxplus-phi).  The
+# shipped trained weights (feedback_gnn_tpu_torch/weights/) against the
+# logical counts of those runs (runs/gnn_bp4_{n882,gb48}.json: the JAX
+# package's own CPU run repeats them from the same keys), within SIGMAS of
+# the two-sample difference: (code, p, reference logical count, its
+# blocks, batches of `batch` here, checked); n882 at p=0.02 has too few
+# errors to check.  Card against CPU on shared inputs: the per-iteration
+# check/logical logits at B=256 (relative L2 a stack) and the hard
+# decisions, then one loss (rtol loss_rtol) and its gradient leaves
+# (relative L2) at the train batch.  The logits' and the leaves' limits
+# are the larger of stack_rel / grad_rel and ulp_factor times their
+# float32 floor: the relative L2 that moving every trained weight by one
+# ulp (seeded) gives, on the card and on the CPU, added in quadrature.
+# phi's staircase at large arguments (softplus(x) - log(expm1(x)), both
+# near x) turns ulps into logit differences of up to ~1.5 at |logit|
+# 10-16, which the CN embeddings carry on: at these inputs float32 cannot
+# hold two implementations within 1e-3.  The train step's rate and
+# memory at B=120 from a fresh init; cli/train_gnn_bp4.py at cut counts
+# (200 steps and 5 evaluation batches, published 4000 and 50; no width
+# cut); cli/qldpc_codes.py's table; cli/n1270.py --qc-kernel for 2 batches.
+GNN_BP4 = dict(
+    batch=2048, seed=31, sigmas=4.5,
+    ler=[("n882", 0.03, 170, 102400, 50, True), ("n882", 0.02, 37, 102400, 50, False),
+         ("gb48", 0.05, 3578, 40960, 20, True), ("gb48", 0.03, 836, 40960, 20, True)],
+    precision_diag=[("n882", 0.03, 170, 102400, 50, False)],
+    check_batch=256, check_p=0.03, stack_rel=1e-3, ulp_factor=2.0, ulp_seed=5, decisions=0.9999,
+    train_batch=120, train_p=0.03, loss_rtol=1e-4, grad_rel=1e-3, rate_steps=20,
+    cli=["--code", "n882", "--steps", "200", "--train-p", "0.03", "--eval-p", "0.03",
+         "--eval-batches", "5"],
+    n1270=["-p", "0.10", "--qc-kernel", "--max-mc-iter", "2"], n1270_batch=5000,
+    zoo={"Steane": (7, 1), "Surface d=3": (13, 1), "Rotated surface d=3": (9, 1),
+         "Toric (checkerboard) d=4": (16, 2), "HGP(rep5, rep5)": (41, 1), "GB [[254,28]]": (254, 28),
+         "GB [[48,6,8]] overcomplete": (48, 6), "GB [[46,2,9]] overcomplete": (46, 2),
+         "GHP [[882,24]]": (882, 24)},
+)
 CURRICULUM_ARTIFACTS = ("n882_easy.npz", "n882_coarse_16_16.npz", "n882_hard.npz",
                         "n882_final_64_16_mixed.npz", "n882_scratch_eval.json")
 
@@ -1217,6 +1258,306 @@ def run_train(codes, code882, device, card, T=TRAIN):
     return {"k1": (k_ms, p_ms, b_ms, b_by), "step": train_step, "ms": step_ms}
 
 
+def two_sample_sigmas(count, samples, ref, ref_samples):
+    """(count/samples - ref/ref_samples) in sigmas of the difference of two
+    binomial rates, the pooled rate's."""
+    pooled = (count + ref) / (samples + ref_samples)
+    sd = (pooled * (1 - pooled) * (1 / samples + 1 / ref_samples)) ** 0.5
+    return (count / samples - ref / ref_samples) / sd if sd > 0 else 0.0
+
+
+def gnn_counts(step, p, batches, G, device):
+    """(flagged, logical) summed over ``batches`` seeded batches of step(gen, p)."""
+    from feedback_gnn_tpu_torch.cli.train_gnn_bp4 import seed_of
+
+    counts = [torch.stack(step(torch.Generator(device=device).manual_seed(seed_of(G["seed"], b, int(p * 1e4))), p))
+              for b in range(batches)]
+    return [int(v) for v in torch.stack(counts).sum(dim=0)]
+
+
+def ulp_moved(params, seed):
+    """A copy of the parameter tree with each entry moved by -1, 0 or +1
+    ulp (relative 2^-23), the steps drawn from ``seed``."""
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+
+    gen = torch.Generator().manual_seed(seed)
+    moved = copy.deepcopy(params)
+    with torch.no_grad():
+        for leaf in flatten_with_paths(moved).values():
+            leaf.mul_(1 + (torch.randint(0, 3, leaf.shape, generator=gen) - 1).to(leaf.device) * 2.0 ** -23)
+    return moved
+
+
+@contextlib.contextmanager
+def bf16_dense():
+    """GNN_BP4's dense layers with their inputs and kernels rounded to
+    bfloat16 and the products summed in float32, as a TPU's default float32
+    matmul computes them."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+
+    plain = gnn_full.dense_bl
+
+    def rounded(x, kernel, bias=None, activation=None):
+        return plain(x.to(torch.bfloat16).float(), kernel.to(torch.bfloat16).float(), bias, activation)
+
+    gnn_full.dense_bl = rounded
+    try:
+        yield
+    finally:
+        gnn_full.dense_bl = plain
+
+
+def rel_l2(a, ref):
+    """Relative L2 error of ``a`` against ``ref``, on the CPU."""
+    ref = ref.cpu()
+    return float((a.cpu() - ref).norm() / ref.norm())
+
+
+def stack_rel_l2(stack, ref):
+    """Per iteration, the larger relative L2 error of the two tensors of
+    ``stack`` against ``ref``."""
+    return [max(rel_l2(a, b) for a, b in zip(sa, sb)) for sa, sb in zip(stack, ref)]
+
+
+def loss_and_grads(params, graph, lrowsets, cfg, nx, nz):
+    """gnn_bp4_loss and its gradient leaves (on the CPU) at ``params``."""
+    from feedback_gnn_tpu_torch.decoders.gnn_full import gnn_bp4_loss
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+
+    leaves = flatten_with_paths(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+        leaf.grad = None
+    loss = gnn_bp4_loss(params, graph, lrowsets, cfg, nx, nz)
+    loss.backward()
+    return loss.item(), {k: v.grad.detach().cpu() for k, v in leaves.items()}
+
+
+def run_gnn_bp4(codes, device, card, G=GNN_BP4):
+    """GNN_BP4 on the card: the shipped trained weights' LERs, card against
+    CPU (forward, loss and gradients), the eval and train steps' rates and
+    memory, cli/train_gnn_bp4.py end to end, cli/qldpc_codes.py and
+    cli/n1270.py --qc-kernel.  Returns the steps and times for the profile
+    and K1's rows at cli/n1270.py's shapes."""
+    from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
+    from feedback_gnn_tpu_torch.cli import n1270, qldpc_codes, train_gnn_bp4
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.decoders import bp4_qc
+    from feedback_gnn_tpu_torch.decoders.gnn_full import (
+        GNNBP4Config, gnn_bp4_apply, init_gnn_bp4, load_gnn_bp4_weights, load_shipped, make_logit_rowsets,
+    )
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+    from feedback_gnn_tpu_torch.models import gnn_bp4_eval_step
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+    from feedback_gnn_tpu_torch.train.trainer import ClipAdam
+
+    def setup(name, dev):
+        host = QuantumGraph.from_code(train_gnn_bp4.build_code(name), stage_mode=True)
+        params, cfg = load_shipped(name, dev)
+        return host.to(dev), make_logit_rowsets(host, dev), params, cfg
+
+    cards = {name: setup(name, device) for name in ("n882", "gb48")}
+    out = {}
+
+    # 1.-2. the shipped trained weights against the JAX package's runs
+    def ler_rows(tag, table):
+        rows, missed = [], []
+        for name, p, ref, ref_blocks, batches, checked in table:
+            graph, rs, params, cfg = cards[name]
+
+            def step(gen, p_, graph=graph, rs=rs, params=params, cfg=cfg):
+                return gnn_bp4_eval_step(graph, rs, params, cfg, gen, p_, G["batch"])
+
+            step(torch.Generator(device=device).manual_seed(0), p)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t1 = time.perf_counter()
+            flagged, logical = gnn_counts(step, p, batches, G, device)
+            secs = time.perf_counter() - t1
+            counts = read_counts()
+            blocks = batches * G["batch"]
+            z = two_sample_sigmas(logical, blocks, ref, ref_blocks)
+            ok = abs(z) < G["sigmas"] or not checked
+            print(f"gnn_bp4 {tag}[[{name}]] p={p}: logical {logical}/{blocks} = {logical / blocks:.4e} "
+                  f"(flagged {flagged}) against the JAX run's {ref}/{ref_blocks} = {ref / ref_blocks:.4e}: "
+                  f"{z:+.2f} sigma{'' if checked else ' (not checked)'}; {secs:.3f} s, "
+                  f"{blocks / secs:.1f} syndromes/s at B={G['batch']}; launches={counts} on {card}", flush=True)
+            if counts != expected_counts():
+                raise AssertionError(f"the GNN_BP4 eval step launched kernels: {counts}")
+            rows.append((name, p, logical, blocks, secs, step))
+            if not ok:
+                missed.append((name, p, z))
+        return rows, missed
+
+    rows, missed = ler_rows("", G["ler"])
+    # the JAX runs trained and counted on a TPU, whose default float32
+    # matmul rounds its inputs to bfloat16: the same count with the dense
+    # layers' inputs so rounded, printed beside the float32 one
+    with bf16_dense():
+        ler_rows("bf16 dense inputs (diagnostic) ", G["precision_diag"])
+    if missed:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ler_rows("TF32 on (diagnostic) ", G["ler"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        raise AssertionError(f"GNN_BP4 LERs outside {G['sigmas']} sigma of the JAX runs: {missed}")
+    name, p, logical, blocks, secs, eval_step = rows[0]
+    out["eval_ms"] = secs / (blocks // G["batch"]) * 1e3
+    gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    int(eval_step(gen, p)[0])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gnn_bp4 eval step [[882,24]] B={G['batch']} p={p}: {blocks / secs:.1f} syndromes/s "
+          f"({out['eval_ms']:.3f} ms a batch); peak memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above "
+          f"the {base / 1e9:.3f} GB held) on {card}", flush=True)
+    out["eval"] = lambda: eval_step(gen, p)
+
+    # 3. card against CPU, forward: per-iteration logits and the hard decisions
+    graph, rs, params, cfg = cards["n882"]
+    cpu_graph, cpu_rs, cpu_params, _ = setup("n882", "cpu")
+    n, B = cpu_graph.n, G["check_batch"]
+    noise = pauli_iid(torch.Generator().manual_seed(G["seed"]), *depolarizing_probs(G["check_p"]), n, B)
+    nx, nz = (torch.nn.functional.pad(t.to(torch.int32), (0, 0, 0, cpu_graph.n_pad - n)) for t in noise)
+    sx, sz = mod2_matmul(cpu_graph.hx, nz), mod2_matmul(cpu_graph.hz, nx)
+    with torch.no_grad():
+        on_card = gnn_bp4_apply(params, graph, rs, sx.to(device), sz.to(device), cfg, collect_logits=True)
+        on_cpu = gnn_bp4_apply(cpu_params, cpu_graph, cpu_rs, sx, sz, cfg, collect_logits=True)
+        card_moved = gnn_bp4_apply(ulp_moved(params, G["ulp_seed"]), graph, rs, sx.to(device), sz.to(device),
+                                   cfg, collect_logits=True)
+        cpu_moved = gnn_bp4_apply(ulp_moved(cpu_params, G["ulp_seed"]), cpu_graph, cpu_rs, sx, sz, cfg,
+                                  collect_logits=True)
+    rel = stack_rel_l2(on_card[2], on_cpu[2])
+    floor = [float(np.hypot(c, h)) for c, h in zip(stack_rel_l2(card_moved[2], on_card[2]),
+                                                    stack_rel_l2(cpu_moved[2], on_cpu[2]))]
+    limits = [max(G["stack_rel"], G["ulp_factor"] * f) for f in floor]
+    differ = int(((on_card[0].cpu() != on_cpu[0]) | (on_card[1].cpu() != on_cpu[1]))[:n].sum())
+    share = 1.0 - differ / (n * B)
+    print(f"gnn_bp4 forward [[882,24]] B={B} p={G['check_p']}, card vs CPU: per-iteration logits relative "
+          f"L2 " + ", ".join(f"{v:.3e}" for v in rel) + "; float32 floor (one-ulp weight moves, card and CPU) "
+          + ", ".join(f"{v:.3e}" for v in floor) + f"; hard decisions differ at {differ} of {n * B} entries "
+          f"(agree {share:.6f})", flush=True)
+    if any(r > lim for r, lim in zip(rel, limits)) or share < G["decisions"]:
+        raise AssertionError(f"GNN_BP4 forward, card vs CPU: logits {rel} (limits {limits}), decisions agree "
+                             f"{share} (limit {G['decisions']})")
+
+    # 4. card against CPU, one loss and its gradients
+    B = G["train_batch"]
+    tx, tz = pauli_iid(torch.Generator().manual_seed(G["seed"] + 1), *depolarizing_probs(G["train_p"]), n, B)
+    tx, tz = tx.to(torch.float32), tz.to(torch.float32)
+    def both(dev, g_, rs_):
+        """The loss and gradients at the shipped weights and at their one-ulp move."""
+        shipped = load_shipped("n882", dev)[0]
+        x_, z_ = tx.to(dev), tz.to(dev)
+        return (loss_and_grads(shipped, g_, rs_, cfg, x_, z_),
+                loss_and_grads(ulp_moved(shipped, G["ulp_seed"]), g_, rs_, cfg, x_, z_))
+
+    (on_card, card_moved), (on_cpu, cpu_moved) = both(device, graph, rs), both("cpu", cpu_graph, cpu_rs)
+    loss_rel, grad_rel = compare_steps(f"gnn_bp4 loss [[882,24]] B={B} p={G['train_p']}, card vs CPU", on_card,
+                                       on_cpu)
+    errors = {k: rel_l2(on_card[1][k], g) for k, g in on_cpu[1].items()}
+    floors = {k: float(np.hypot(rel_l2(card_moved[1][k], on_card[1][k]), rel_l2(cpu_moved[1][k], g)))
+              for k, g in on_cpu[1].items()}
+    over = {k: (e, floors[k]) for k, e in errors.items() if e > max(G["grad_rel"], G["ulp_factor"] * floors[k])}
+    worst = max(errors, key=lambda k: errors[k] / floors[k])
+    print(f"  float32 floor of the gradient leaves (one-ulp weight moves, card and CPU): {min(floors.values()):.3e} "
+          f"to {max(floors.values()):.3e}; closest to it {worst}: error {errors[worst]:.3e}, floor "
+          f"{floors[worst]:.3e}; the loss's floor {abs(cpu_moved[0] - on_cpu[0]) / abs(on_cpu[0]):.3e} (CPU)",
+          flush=True)
+    if loss_rel > G["loss_rtol"] or over:
+        raise AssertionError(f"GNN_BP4 loss, card vs CPU: {loss_rel:.3e} (rtol {G['loss_rtol']}), gradient leaves "
+                             f"over their limits (error, floor): {over}")
+    del on_card, on_cpu, card_moved, cpu_moved
+
+    # 5. the train step's rate and memory, from a fresh init
+    tparams = init_gnn_bp4(torch.Generator(device=device).manual_seed(G["seed"]), cfg)
+    opt = ClipAdam(1e-3, 10.0)
+    state = opt.init(tparams)
+    tgen = torch.Generator(device=device).manual_seed(G["seed"])
+
+    def train_once():
+        nx_, nz_ = pauli_iid(tgen, *depolarizing_probs(G["train_p"]), n, B)
+        return (train_gnn_bp4.train_step(opt, state, tparams, graph, rs, cfg, nx_, nz_),)
+
+    float(train_once()[0])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    float(train_once()[0])
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    t1 = time.perf_counter()
+    losses = [train_once()[0] for _ in range(G["rate_steps"])]
+    float(losses[-1])
+    dt = time.perf_counter() - t1
+    out["train"], out["train_ms"] = train_once, dt / G["rate_steps"] * 1e3
+    print(f"gnn_bp4 train step [[882,24]] B={B}: {G['rate_steps'] / dt:.3f} steps/s, "
+          f"{G['rate_steps'] * B / dt:.1f} samples/s ({out['train_ms']:.3f} ms a step); peak memory of a step "
+          f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held); "
+          f"launches={read_counts()} on {card}", flush=True)
+
+    # 6. cli/train_gnn_bp4.py end to end
+    with tempfile.TemporaryDirectory() as d:
+        rpath, wpath = os.path.join(d, "r.json"), os.path.join(d, "w.npz")
+        reset_counts()
+        t1 = time.perf_counter()
+        results, losses, trained = train_gnn_bp4.main(G["cli"] + ["--device", str(device), "--out", rpath,
+                                                                  "--weights-out", wpath])
+        secs = time.perf_counter() - t1
+        counts = read_counts()
+        with open(rpath) as f:
+            written = json.load(f)
+        back = flatten_with_paths(load_gnn_bp4_weights(wpath, GNNBP4Config(**written["cfg"]), device))
+    flat = flatten_with_paths(trained)
+    same = sorted(back) == sorted(flat) and all(torch.equal(v, flat[k].detach()) for k, v in back.items())
+    cli_p = float(G["cli"][G["cli"].index("--eval-p") + 1])
+    init_ler, trained_ler = results["init"][cli_p]["ler"], results["trained"][cli_p]["ler"]
+    print(f"gnn_bp4 cli/train_gnn_bp4.py {' '.join(G['cli'])}: {secs:.2f} s; loss step 0 {losses[0]:.4f}, "
+          f"step {len(losses) - 1} {losses[-1]:.4f}; LER at p={cli_p} init {init_ler:.4e}, trained "
+          f"{trained_ler:.4e}; weights loaded back {'equal' if same else 'DIFFERENT'}; JSON keys "
+          f"{list(written)}; launches={counts}", flush=True)
+    point = next(iter(written["trained"].values()))
+    if not (np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0] and trained_ler < init_ler and same
+            and list(written) == ["code", "cfg", "steps", "train_p", "init", "trained"]
+            and list(written["cfg"]) == list(GNNBP4Config._fields)
+            and list(point) == ["flagged", "logical", "blocks", "ler"] and counts == expected_counts()):
+        raise AssertionError("cli/train_gnn_bp4.py end to end failed its checks")
+
+    # 7. the example CLIs: the code zoo's table, [[1270,28]] with K1
+    zoo = qldpc_codes.main([])
+    got = {k: (c.N, c.K) for k, c in zoo.items()}
+    if got != G["zoo"]:
+        raise AssertionError(f"cli/qldpc_codes.py: {got}")
+    reset_counts()
+    t1 = time.perf_counter()
+    res = n1270.main(G["n1270"] + ["--device", str(device)])
+    secs = time.perf_counter() - t1
+    counts = read_counts()
+    bs = G["n1270_batch"]
+    batches = int(res.num_blocks[0]) // bs
+    overflow = int(np.sum(res.overflow))
+    print(f"cli/n1270.py {' '.join(G['n1270'])}: {batches} batches of {bs} in {secs:.2f} s, logical "
+          f"{int(res.logical_errors[0])}, LER {float(res.ler[0]):.4e}, overflow {overflow}, launches={counts} "
+          f"(K1 counted from the code: {batches * 6})", flush=True)
+    if overflow != 0 or counts != expected_counts(K1=batches * 6) or batches < 1:
+        raise AssertionError(f"cli/n1270.py: overflow {overflow}, launches {counts}")
+
+    # K1 at cli/n1270.py's shapes: stage 1 (64 iterations) and a round (16)
+    qc = codes["n1270"][1]
+    out["k1"] = {}
+    for iters in (64, 16):
+        llr, ksx, ksz = random_inputs(qc, bs, device, seed=3)
+        label = f"n1270 B={bs} iters={iters} (cli/n1270.py)"
+        check_against_plain(label, bp4_qc.bp4_qc_marginals(qc, llr, ksx, ksz, iters),
+                            bp4_qc.bp4_qc_marginals_plain(qc, llr, ksx, ksz, iters))
+        k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc, llr, ksx, ksz, iters), reps=10)
+        p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc, llr, ksx, ksz, iters), reps=2)
+        b_ms, b_by = k1_bound_ms(qc, bs, iters)
+        out["k1"][iters] = (k_ms, p_ms, b_ms, b_by)
+        print(f"K1 {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1501,7 +1842,12 @@ def main() -> int:
     tr = run_train(codes, code882, device, card)
     phase("train", t0)
 
-    # 16. where a step's device time goes
+    # 16. GNN_BP4 and the example CLIs
+    t0 = time.perf_counter()
+    gn = run_gnn_bp4(codes, device, card)
+    phase("gnn_bp4", t0)
+
+    # 17. where a step's device time goes
     t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
     profile_step(f"bench [[1270,28]] B={settings.batch} p={settings.p}", step, (gen, settings.p),
@@ -1524,6 +1870,9 @@ def main() -> int:
               f"(OSD share {calls * osd_ms / step_ms_o:.3f}) on {card}")
         profile_step(f"osd {mode} [[882,24]]", ostep, (gen, float(argv[argv.index("-p") + 1])), step_ms_o, card)
     profile_step(f"train step 64/16 [[882,24]] B={TRAIN['step_batch']}", tr["step"], (), tr["ms"], card)
+    profile_step(f"gnn_bp4 eval step [[882,24]] B={GNN_BP4['batch']} p=0.03", gn["eval"], (), gn["eval_ms"], card)
+    profile_step(f"gnn_bp4 train step [[882,24]] B={GNN_BP4['train_batch']}", gn["train"], (), gn["train_ms"],
+                 card)
     phase("profile", t0)
 
     k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64, None)]

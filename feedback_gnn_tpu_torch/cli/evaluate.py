@@ -16,7 +16,7 @@ from ..decoders.cascade import sandwich_eval_step
 from ..decoders.gnn_feedback import load_weights
 from ..sim import PlotLER
 
-__all__ = ["run", "make_step", "main"]
+__all__ = ["run", "make_step", "main", "run_example"]
 
 
 def make_step(cfg, device):
@@ -68,6 +68,19 @@ def run(cfg):
 
 def main(argv=None):
     return run(config_from_args(make_eval_parser().parse_args(argv)))
+
+
+def run_example(code: str, argv=None):
+    """The per-code example CLIs (cli/n882.py, cli/n1270.py): this CLI's
+    flags with the reference defaults (bs=5000, nG=5) and a run id ``-id``
+    that seeds the generators when ``--seed`` is 0.  Returns the SimResult."""
+    ap = make_eval_parser()
+    ap.prog = code
+    ap.add_argument("-id", type=int, default=0, help="run id (seeds the generators)")
+    ap.set_defaults(code=code, batch_size=5000, num_rounds=5)
+    args = ap.parse_args(argv)
+    args.seed = args.seed or args.id
+    return run(config_from_args(args))
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["row_echelon", "kernel", "row_basis", "compute_code_distance"]
+__all__ = ["row_echelon", "rank", "kernel", "row_basis", "compute_code_distance", "inverse", "int2bin"]
 
 
 def row_echelon(mat: np.ndarray, reduced: bool = False, use_native: bool = True):
@@ -56,6 +56,11 @@ def row_echelon(mat: np.ndarray, reduced: bool = False, use_native: bool = True)
     return [mat.astype(int), pivot_row, transform.astype(int), pivot_cols]
 
 
+def rank(mat: np.ndarray) -> int:
+    """Rank of a binary matrix over GF(2)."""
+    return row_echelon(mat)[1]
+
+
 def kernel(mat: np.ndarray):
     """Kernel of ``mat`` over GF(2): ``(ker, rank, pivot_cols)``, where the
     rows of ``ker`` span ``{x : mat @ x = 0 (mod 2)}`` and ``pivot_cols``
@@ -84,3 +89,26 @@ def compute_code_distance(mat: np.ndarray, is_pcm: bool = True, is_basis: bool =
     if not is_basis:
         cw = row_basis(gen)
     return int(np.min(np.sum(cw, axis=1)))
+
+
+def inverse(mat: np.ndarray) -> np.ndarray:
+    """Left inverse of a full-(column-)rank binary matrix."""
+    m, n = mat.shape
+    reduced_row_ech, rk, transform, _ = row_echelon(mat, reduced=True)
+    if m == n and rk == m:
+        return transform
+    if m > rk and n == rk:
+        return reduced_row_ech.T @ transform % 2
+    raise ValueError(
+        "Matrix is not invertible: need a full-rank square matrix or a "
+        "rectangular matrix with full column rank."
+    )
+
+
+def int2bin(num: int, length: int) -> list:
+    """Binary representation of ``num`` in ``length`` bits, most significant
+    first (the column order of the Hamming constructor)."""
+    if num < 0 or length < 0:
+        raise ValueError(f"int2bin needs num >= 0 and length >= 0, got {num}, {length}")
+    bin_str = format(num, f"0{length}b")[-length:] if length else ""
+    return [int(x) for x in bin_str]

@@ -8,4 +8,8 @@ from .gnn_feedback import (
     feedback_gnn_apply, init_feedback_gnn, load_reference_weights, load_weights, params_from_numpy,
     save_reference_weights,
 )
+from .gnn_full import (
+    GNNBP4Config, gnn_bp4_apply, gnn_bp4_loss, init_gnn_bp4, load_gnn_bp4_weights, load_shipped,
+    make_logit_rowsets,
+)
 from .graph_ops import expand_vn, gather_to_cn, pad_rows_to, scatter_from_cn, vn_sum

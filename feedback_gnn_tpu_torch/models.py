@@ -14,9 +14,10 @@ given to this package and to the JAX package.
   bp4_osd_eval_step    BP4 + OSD-0 over the depolarizing channel
   bp2_osd_eval_step    BP2 + OSD-0 over a BSC
   sandwich_eval_step   the feedback-GNN cascade (decoders/cascade.py)
+  gnn_bp4_eval_step    the fully-learned GNN decoder (decoders/gnn_full.py)
+                       over the depolarizing channel
 
 The OSD steps decode with the gather decoders, as the JAX package's do.
-``gnn_bp4_eval_step`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ from __future__ import annotations
 import torch
 
 from .channels.bsc import bsc_sample
-from .channels.pauli import depolarizing_probs, pauli_iid
+from .channels.pauli import depolarizing_probs, pauli_fixed_weight, pauli_iid
 from .decoders.bp2 import bp2_decode
 from .decoders.bp2_qc import bp2_qc_logits
 from .decoders.bp4 import bp4_decode
 from .decoders.cascade import prior_llr, sandwich_eval_step  # noqa: F401
 from .decoders.cascade import _flagged_first
+from .decoders.gnn_full import gnn_bp4_apply
 from .decoders.graph_ops import pad_rows_to
 from .decoders.osd import bp_osd_correct, osd0_decode
 from .ops.gf2mat import mod2_matmul
@@ -44,6 +46,8 @@ __all__ = [
     "bp2_osd_eval_step",
     "bp2_osd_count",
     "sandwich_eval_step",
+    "gnn_bp4_eval_step",
+    "gnn_bp4_count",
 ]
 
 
@@ -242,3 +246,37 @@ def bp2_osd_eval_step(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, generat
     noise = bsc_sample(generator, p, (pcm.shape[1], batch))
     return bp2_osd_count(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, noise, p, num_iter,
                          cn_type, normalization_factor, osd_compact_cap)
+
+
+@torch.no_grad()
+def gnn_bp4_count(graph, lrowsets, params, cfg, noise_x, noise_z):
+    """Decode the syndromes of given Pauli errors ``noise_x``/``noise_z``
+    [n, B] (0/1) with GNN_BP4 and count the errors; the decode-and-count
+    part of ``gnn_bp4_eval_step``."""
+    noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
+    noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
+    syndrome_x = mod2_matmul(graph.hx, noise_z)
+    syndrome_z = mod2_matmul(graph.hz, noise_x)
+
+    x_hat, z_hat, _ = gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg)
+    x_diff = noise_x ^ x_hat
+    z_diff = noise_z ^ z_hat
+    s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)], dim=0)
+    ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)],
+                       dim=0)
+    return _counts(s_hat, ls_hat)
+
+
+def gnn_bp4_eval_step(graph, lrowsets, params, cfg, generator: torch.Generator, p, batch: int,
+                      wt: int | None = None):
+    """Monte-Carlo evaluation of the fully-learned GNN decoder: Pauli noise
+    (exactly ``wt`` errors a sample when ``wt`` is given, else depolarizing
+    of strength ``p``) -> syndromes -> GNN_BP4 -> (flagged, logical).
+    ``graph`` is a ``QuantumGraph`` of tensors, ``lrowsets`` from
+    ``decoders.gnn_full.make_logit_rowsets``, ``params``/``cfg`` GNN_BP4's."""
+    if wt is not None:
+        noise_x, noise_z = pauli_fixed_weight(generator, wt, graph.n, batch)
+    else:
+        px, py, pz = depolarizing_probs(p)
+        noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
+    return gnn_bp4_count(graph, lrowsets, params, cfg, noise_x, noise_z)

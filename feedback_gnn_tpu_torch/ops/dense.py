@@ -28,9 +28,11 @@ def mlp_bl(x, layers, activations):
     return x
 
 
-def init_dense(generator: torch.Generator, fan_in: int, fan_out: int, kernel_init: str = "glorot"):
+def init_dense(generator: torch.Generator, fan_in: int, fan_out: int, kernel_init: str = "glorot",
+               use_bias: bool = True):
     """Keras Dense defaults on the generator's device: glorot-uniform kernel
-    (``kernel_init="zeros"``: a zero kernel, no draw), ones bias."""
+    (``kernel_init="zeros"``: a zero kernel, no draw), ones bias (none
+    without ``use_bias``)."""
     dev = generator.device
     if kernel_init == "zeros":
         kernel = torch.zeros((fan_in, fan_out), device=dev)
@@ -38,13 +40,15 @@ def init_dense(generator: torch.Generator, fan_in: int, fan_out: int, kernel_ini
         limit = (6.0 / (fan_in + fan_out)) ** 0.5
         u = torch.rand((fan_in, fan_out), generator=generator, device=dev)
         kernel = u * (2.0 * limit) - limit
+    if not use_bias:
+        return {"kernel": kernel}
     return {"kernel": kernel, "bias": torch.ones((fan_out,), device=dev)}
 
 
-def init_mlp(generator: torch.Generator, fan_in: int, units):
+def init_mlp(generator: torch.Generator, fan_in: int, units, use_bias: bool = True):
     """Dense layers of ``units`` widths after an input of ``fan_in``."""
     layers, prev = [], fan_in
     for u in units:
-        layers.append(init_dense(generator, prev, u))
+        layers.append(init_dense(generator, prev, u, use_bias=use_bias))
         prev = u
     return layers

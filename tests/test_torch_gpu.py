@@ -12,6 +12,8 @@ tests/test_bp4_parity.py's tolerances.  The probe kernels
 bit, phi within rtol = atol = 1e-5 (probes.PHI_TOL).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -437,3 +439,109 @@ def test_train_step_on_card_matches_cpu(card, n882_training):
     np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=1e-4)
     for key, g in on_cpu[1].items():
         assert float((on_card[1][key] - g).norm() / g.norm()) <= 1e-3, key
+
+
+# ---- GNN_BP4: card against CPU at full width ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gnn_bp4_n882():
+    """{device: (graph, row sets, shipped trained params, cfg)} for [[882,24]]."""
+    from feedback_gnn_tpu_torch.decoders.gnn_full import load_shipped, make_logit_rowsets
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    host = tc.QuantumGraph.from_code(tc.ghp_882_24(), stage_mode=True)
+    return {dev: (host.to(dev), make_logit_rowsets(host, dev), *load_shipped("n882", dev))
+            for dev in ("cuda", "cpu")}
+
+
+def _pauli(n, batch, p, seed):
+    from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
+
+    return pauli_iid(torch.Generator().manual_seed(seed), *depolarizing_probs(p), n, batch)
+
+
+def _ulp_moved(params, seed):
+    """A copy of the parameter tree with each entry moved by -1, 0 or +1 ulp."""
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+
+    gen = torch.Generator().manual_seed(seed)
+    moved = copy.deepcopy(params)
+    with torch.no_grad():
+        for leaf in flatten_with_paths(moved).values():
+            leaf.mul_(1 + (torch.randint(0, 3, leaf.shape, generator=gen) - 1).to(leaf.device) * 2.0 ** -23)
+    return moved
+
+
+def _rel_l2(a, ref):
+    ref = ref.cpu()
+    return float((a.cpu() - ref).norm() / ref.norm())
+
+
+def _limit(fixed, card_pair, cpu_pair):
+    """The larger of ``fixed`` and twice the float32 floor: the relative L2
+    that a one-ulp move of the weights gives on the card and on the CPU
+    ((moved, unmoved) pairs), added in quadrature."""
+    return max(fixed, 2.0 * float(np.hypot(_rel_l2(*card_pair), _rel_l2(*cpu_pair))))
+
+
+@pytest.mark.gpu
+def test_gnn_bp4_forward_on_card_matches_cpu(card, gnn_bp4_n882):
+    """The shipped trained weights on one B=256 batch at p=0.03, syndromes
+    computed once: each iteration's check/logical logits within a relative
+    L2 error of the larger of 1e-3 and twice their float32 floor (phi's
+    staircase at large arguments turns ulps into logit differences that the
+    CN embeddings carry on), the hard decisions equal on >= 0.9999 of the
+    entries."""
+    from feedback_gnn_tpu_torch.decoders.gnn_full import gnn_bp4_apply
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+
+    graph, rs, params, cfg = gnn_bp4_n882["cpu"]
+    n = graph.n
+    nx, nz = (torch.nn.functional.pad(t.to(torch.int32), (0, 0, 0, graph.n_pad - n)) for t in _pauli(n, 256, 0.03, 31))
+    sx, sz = mod2_matmul(graph.hx, nz), mod2_matmul(graph.hz, nx)
+    cg, crs, cparams, _ = gnn_bp4_n882["cuda"]
+    with torch.no_grad():
+        ref = gnn_bp4_apply(params, graph, rs, sx, sz, cfg, collect_logits=True)
+        ref_moved = gnn_bp4_apply(_ulp_moved(params, 5), graph, rs, sx, sz, cfg, collect_logits=True)
+        out = gnn_bp4_apply(cparams, cg, crs, sx.to(card), sz.to(card), cfg, collect_logits=True)
+        moved = gnn_bp4_apply(_ulp_moved(cparams, 5), cg, crs, sx.to(card), sz.to(card), cfg, collect_logits=True)
+    assert out[0].is_cuda and len(out[2]) == cfg.num_iter
+    for i, stacks in enumerate(zip(out[2], ref[2], moved[2], ref_moved[2])):
+        for u, v, w, x in zip(*stacks):
+            assert _rel_l2(u, v) <= _limit(1e-3, (w, u), (x, v)), i
+    differ = ((out[0].cpu() != ref[0]) | (out[1].cpu() != ref[1]))[:n]
+    assert 1.0 - float(differ.float().mean()) >= 0.9999
+
+
+@pytest.mark.gpu
+def test_gnn_bp4_loss_on_card_matches_cpu(card, gnn_bp4_n882):
+    """gnn_bp4_loss and its gradients on one shared B=120 batch at p=0.03
+    from the shipped trained weights: the loss at rtol 1e-4, each gradient
+    leaf within a relative L2 error of the larger of 1e-3 and twice its
+    float32 floor (the index gathers' backward adds atomically on the card,
+    in no fixed order)."""
+    from feedback_gnn_tpu_torch.decoders.gnn_full import gnn_bp4_loss, load_shipped
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+
+    nx, nz = (t.to(torch.float32) for t in _pauli(882, 120, 0.03, 32))
+
+    def loss_grads(dev, moved):
+        graph, rs, _, cfg = gnn_bp4_n882[dev]
+        params = load_shipped("n882", dev)[0]
+        if moved:
+            params = _ulp_moved(params, 5)
+        leaves = flatten_with_paths(params)
+        for leaf in leaves.values():
+            leaf.requires_grad_(True)
+        loss = gnn_bp4_loss(params, graph, rs, cfg, nx.to(dev), nz.to(dev))
+        loss.backward()
+        return loss.item(), {k: v.grad.cpu() for k, v in leaves.items()}
+
+    (on_card, card_moved), (on_cpu, cpu_moved) = ((loss_grads(dev, False), loss_grads(dev, True))
+                                                  for dev in ("cuda", "cpu"))
+    np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=1e-4)
+    for key, g in on_cpu[1].items():
+        limit = _limit(1e-3, (card_moved[1][key], on_card[1][key]), (cpu_moved[1][key], g))
+        assert _rel_l2(on_card[1][key], g) <= limit, key
