@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -203,6 +204,30 @@ GNN_BP4 = dict(
          "GB [[48,6,8]] overcomplete": (48, 6), "GB [[46,2,9]] overcomplete": (46, 2),
          "GHP [[882,24]]": (882, 24)},
 )
+# Multi-device (parallel/): ranks are processes of this machine's one card,
+# so two ranks share it (Gloo) and one rank alone takes NCCL.  (a) the
+# evaluate configuration data-parallel on 2 ranks (20480 = 2 x 10240), its
+# counts against the same two per-rank seeds run unsharded here; (b) one
+# rank on NCCL at 20480 against the unsharded step; (c) cli/evaluate.py
+# --data-shards 2 for `cli_batches` batches; (d) the DP train step on 2
+# ranks at the published 64/16 schedule on B=100 stage-1 failures (the
+# first of `train_pool` fixed-weight samples at weight 80 that BP-64
+# leaves flagged, as the miners keep them), against the single-process
+# step (stage 2 on shared stage-1 features at TRAIN's rule; the whole step
+# as tests/test_sharding.py holds JAX's); (e) the gather cascade
+# edge-sharded over 2 ranks at GATHER's point against the unsharded decode
+# on the same noise, at two schedules: the short one (`edge_short`
+# iterations, where moving the prior LLRs by one ulp changes next to no
+# decision) must agree on at least `agree` of the samples, which a wrong
+# vn_sum or shard layout cannot; the published 64/16, where BP4 turns ulps
+# into other decisions, on all but twice the share that the ulp move
+# changes in the unsharded decode itself, with its LER held to the main
+# path's reference as gather_cascade is; cli/bench_scaling.py for 1 and 2
+# ranks.  Every child has a join deadline and every collective a timeout.
+PARALLEL = dict(p=0.08, batch=20480, seeds=[101, 102, 103, 104], cli_batches=3, train_batch=100,
+                train_pool=2048, train_wt=80, train_seed=41, edge_seed=43, edge_short=(8, 4), agree=0.999,
+                floor_factor=2.0, cosine=0.75, timeout_s=240.0, join_s=300.0, scaling=["--code", "n882", "--local-batch", "10240", "--shards", "1", "2",
+                                       "--qc-kernel", "--iters", "4", "-p", "0.08", "-nG", "3"])
 CURRICULUM_ARTIFACTS = ("n882_easy.npz", "n882_coarse_16_16.npz", "n882_hard.npz",
                         "n882_final_64_16_mixed.npz", "n882_scratch_eval.json")
 
@@ -1558,6 +1583,266 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     return out
 
 
+def run_ranks(world, tasks, device, P=PARALLEL):
+    """Every rank's results of ``tasks`` (parallel/workers.py) on ``world``
+    ranks of this machine's cards (the CPU for a rehearsal), the backend
+    chosen by the rule."""
+    from feedback_gnn_tpu_torch.parallel.launch import launch
+    from feedback_gnn_tpu_torch.parallel.workers import run_tasks
+
+    rank_device = "cpu" if device.type == "cpu" else None
+    return launch(run_tasks, world, args=(tasks, rank_device), device=rank_device, timeout_s=P["timeout_s"],
+                  join_timeout_s=P["join_s"], threads=1 if rank_device else None)
+
+
+def run_parallel(codes, code882, device, card, P=PARALLEL, E=EVALUATE, T=TRAIN, G=GATHER):
+    """Phase parallel: (a)-(e) and the scaling CLI (see PARALLEL)."""
+    from dataclasses import replace
+
+    from feedback_gnn_tpu_torch.channels import pauli_fixed_weight, pauli_iid
+    from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs
+    from feedback_gnn_tpu_torch.cli import bench_scaling
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.config import CODE_REGISTRY
+    from feedback_gnn_tpu_torch.decoders.bp4 import hard_decision
+    from feedback_gnn_tpu_torch.decoders.cascade import (CascadeConfig, data_seed, prior_llr,
+                                                         sandwich_decode, sandwich_eval_step)
+    from feedback_gnn_tpu_torch.decoders.gnn_feedback import load_weights
+    from feedback_gnn_tpu_torch.io.checkpoint import flatten_with_paths
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+    from feedback_gnn_tpu_torch.train.trainer import (ClipAdam, TrainConfig, make_train_step,
+                                                      stage_one_features, stage_two_loss)
+
+    graph, qc, params = codes["n882"]
+    host = QuantumGraph.from_code(code882, stage_mode=True)
+    weights = CODE_REGISTRY["n882"]["weights"]
+    if device.type == "cuda":  # the ranks share this card: hand back what earlier phases cached
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"parallel: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on {card}", flush=True)
+    cfg = CascadeConfig(num_rounds=E["rounds"], compact_fraction=E["compact"], stage1_prepass=E["prepass"],
+                        round_fraction=E["rounds_cap"])
+    steps, batch, p = len(P["seeds"]), P["batch"], P["p"]
+    # prepass, subset, rounds: K1 launches per rank (none on a CPU rehearsal)
+    launches = steps * (2 + E["rounds"]) if device.type == "cuda" else 0
+    # the backend each world must take here: one rank has the card to
+    # itself (NCCL); two share the one card (Gloo), or take a card each
+    backends = ({1: "nccl", 2: "gloo" if torch.cuda.device_count() == 1 else "nccl"}
+                if device.type == "cuda" else {1: "gloo", 2: "gloo"})
+    out = {}
+
+    def unsharded(data, local):
+        """Counts per seed summed over ``data`` ranks run here, and the
+        seconds of the steps (one warm-up first)."""
+        sandwich_eval_step(graph, [params], cfg, torch.Generator(device=device).manual_seed(7), p, local,
+                           qc=qc, return_overflow=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = []
+        for s in P["seeds"]:
+            tot = np.zeros(3, np.int64)
+            for d in range(data):
+                gen = torch.Generator(device=device).manual_seed(data_seed(s, d))
+                tot += [int(c) for c in sandwich_eval_step(graph, [params], cfg, gen, p, local, qc=qc,
+                                                           return_overflow=True)]
+            counts.append(tuple(int(c) for c in tot))
+        torch.cuda.synchronize()
+        return counts, time.perf_counter() - t1
+
+    def check_eval(label, res, ref, backend, world):
+        seconds = max(r["seconds"] for r in res)
+        rate = batch * steps / seconds
+        peaks = [(r["peak_bytes"] or 0) / 1e9 for r in res]
+        print(f"parallel {label}: backend {[r['backend'] for r in res]}, counts {res[0]['counts']} "
+              f"(unsharded sum {ref}), K1 launches per rank {[r['k1_launches'] for r in res]}, "
+              f"{rate:.1f} syndromes/s ({seconds / steps * 1e3:.3f} ms per batch of {batch}), peak "
+              f"{', '.join(f'{g:.3f}' for g in peaks)} GB per rank on {card}", flush=True)
+        if any(r["backend"] != backend for r in res):
+            raise AssertionError(f"parallel {label}: backend {[r['backend'] for r in res]}, expected {backend}")
+        if any(r["counts"] != ref for r in res):
+            raise AssertionError(f"parallel {label}: counts differ from the unsharded sum")
+        if any(c[2] != 0 for c in ref):
+            raise AssertionError(f"parallel {label}: compaction overflow")
+        if any(r["k1_launches"] != launches for r in res):
+            raise AssertionError(f"parallel {label}: K1 launches {[r['k1_launches'] for r in res]}, "
+                                 f"expected {launches} per rank")
+        return rate, seconds / steps
+
+    def eval_task(data):
+        return ("eval_counts", dict(mesh_shape=(data, 1), graph=host, params=weights, cfg=cfg,
+                                    local_batch=batch // data, seeds=P["seeds"], p=p, qc=qc,
+                                    return_overflow=True, warmup=1))
+
+    # (a) data-parallel evaluation, 2 ranks on the one card
+    ref2, _ = unsharded(2, batch // 2)
+    out["a"] = check_eval(f"(a) DP eval 2 ranks [[882,24]] p={p} B={batch}", [r[0] for r in run_ranks(2, [eval_task(2)], device)],
+                          ref2, backends[2], 2)
+    # (b) the NCCL route: one rank, and one rank per card where there are two
+    ref1, t_plain = unsharded(1, batch)
+    out["b"] = check_eval(f"(b) world 1 [[882,24]] p={p} B={batch}", [r[0] for r in run_ranks(1, [eval_task(1)], device)], ref1,
+                          backends[1], 1)
+    out["plain"] = (batch * steps / t_plain, t_plain / steps)
+    print(f"parallel unsharded step [[882,24]] p={p} B={batch}: {out['plain'][0]:.1f} syndromes/s "
+          f"({out['plain'][1] * 1e3:.3f} ms per batch); world-1 NCCL overhead "
+          f"{(out['b'][1] - out['plain'][1]) * 1e3:.3f} ms per batch; 2 ranks sharing the card "
+          f"{out['a'][0] / out['plain'][0]:.3f} of the unsharded rate on {card}", flush=True)
+    if torch.cuda.device_count() >= 2:
+        check_eval(f"(b) one rank per card [[882,24]] p={p} B={batch}", [r[0] for r in run_ranks(2, [eval_task(2)], device)], ref2,
+                   "nccl", 2)
+
+    # (c) the evaluate CLI, spawning its 2 ranks
+    argv = ["-c", "n882", "-p", str(p), "-nG", str(E["rounds"]), "-bs", str(batch), "--qc-kernel",
+            "--compact", str(E["compact"]), "--prepass", str(E["prepass"]), "--rounds-cap",
+            str(E["rounds_cap"]), "--max-mc-iter", str(P["cli_batches"]), "--target-errors", "1000000",
+            "--data-shards", "2"]
+    t1 = time.perf_counter()
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    run = subprocess.run([sys.executable, "-m", "feedback_gnn_tpu_torch.cli.evaluate", *argv],
+                         capture_output=True, text=True, timeout=P["join_s"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(run.stdout[-3000:], run.stderr[-3000:], sep="\n", flush=True)
+    # the summary row: p | flagged | LER | log errs | blocks | runtime | blk/s | status
+    summary = [line.split("|") for line in run.stdout.splitlines() if line.count("|") == 7
+               and line.split("|")[0].strip() == f"{p:.4g}"]
+    backend = backends[2]
+    print(f"parallel (c) cli/evaluate.py --data-shards 2: exit {run.returncode} in "
+          f"{time.perf_counter() - t1:.2f} s, backend {backend} expected on {card}", flush=True)
+    if run.returncode != 0 or len(summary) != 1 or f"backend {backend}, world 2" not in run.stdout:
+        raise AssertionError("parallel (c): the sharded evaluate CLI did not finish as expected")
+    if int(summary[0][4]) != P["cli_batches"] * batch or "WARNING" in run.stdout:
+        raise AssertionError(f"parallel (c): blocks {summary[0][4]} or a compaction overflow")
+
+    # (d) the data-parallel train step, 2 ranks
+    tcfg = TrainConfig(**T["full"])
+    b = P["train_batch"]
+    gen = torch.Generator(device=device).manual_seed(P["train_seed"])
+    px, pz = (t.to(torch.float32) for t in pauli_fixed_weight(gen, P["train_wt"], graph.n, P["train_pool"]))
+    h_vn = stage_one_features(graph, tcfg, px, pz)[0]
+    pad = (0, 0, 0, graph.n_pad - graph.n)
+    xh, zh = (torch.nn.functional.pad(t[: graph.n], pad) for t in hard_decision(*h_vn))
+    pxp, pzp = (torch.nn.functional.pad(t.to(torch.int32), pad) for t in (px, pz))
+    failed = torch.cat([mod2_matmul(graph.hz, xh ^ pxp), mod2_matmul(graph.hx, zh ^ pzp)]).ne(0).any(dim=0)
+    keep = failed.nonzero().flatten()[:b]
+    print(f"parallel (d): {int(failed.sum())} of {P['train_pool']} samples at weight {P['train_wt']} fail "
+          f"stage 1; the first {len(keep)} are the batch", flush=True)
+    if len(keep) < b:
+        raise AssertionError("parallel (d): too few stage-1 failures for the batch")
+    nx, nz = px[:, keep], pz[:, keep]
+
+    def fresh():
+        tree = load_weights(weights, device)
+        for leaf in flatten_with_paths(tree).values():
+            leaf.requires_grad_(True)
+        return tree
+
+    ref_params = fresh()
+    feats = stage_one_features(graph, tcfg, nx, nz)
+    loss, (s_hat, ls_hat) = stage_two_loss(ref_params, graph, tcfg, nx, nz, *feats)
+    loss.backward()
+    shared_ref = (loss.item(), {k: v.grad.cpu().numpy() for k, v in flatten_with_paths(ref_params).items()},
+                  float((s_hat != 0).any(dim=0).float().mean()))
+    whole_params, opt = fresh(), ClipAdam(0.0, 1e30)
+    state = opt.init(whole_params)
+    _, _, w_loss, w_fb, _ = make_train_step(graph, tcfg, opt)(whole_params, state, nx, nz)
+    whole_ref = (float(w_loss), {k: v.grad.cpu().numpy() for k, v in flatten_with_paths(whole_params).items()},
+                 float(w_fb))
+    step = dict(graph=host, params=weights, cfg=tcfg, noise_x=nx.cpu().numpy(), noise_z=nz.cpu().numpy())
+    t1 = time.perf_counter()
+    shared, whole = (r for r in zip(*run_ranks(2, [
+        ("dp_stage_two_grads", dict(step, data=2, features=[f.cpu().numpy() for f in feats])),
+        ("train_step", dict(step, mesh_shape=(2, 1)))], device)))
+    train_s = time.perf_counter() - t1
+    for label, res, (r_loss, r_grads, r_fb) in (("stage 2 on shared stage-1 features", shared, shared_ref),
+                                                ("whole step", whole, whole_ref)):
+        for r in res:
+            (l2, fb2, _), = r["rates"]
+            loss_rel = abs(l2 - r_loss) / abs(r_loss)
+            grad_rel = max(np.linalg.norm(r["grads"][k] - g) / np.linalg.norm(g) for k, g in r_grads.items())
+            a = np.concatenate([r["grads"][k].ravel() for k in r_grads])
+            c = np.concatenate([g.ravel() for g in r_grads.values()])
+            cosine = float(a @ c / (np.linalg.norm(a) * np.linalg.norm(c)))
+            print(f"parallel (d) DP train 64/16 [[882,24]] B={b} {label}: backend {r['backend']}, loss "
+                  f"{l2:.7f} vs {r_loss:.7f} (relative {loss_rel:.3e}), flagged_bler {fb2} vs {r_fb}, "
+                  f"largest leaf relative L2 {grad_rel:.3e}, cosine {cosine:.6f}", flush=True)
+            if r["backend"] != backends[2]:
+                raise AssertionError(f"parallel (d): backend {r['backend']}")
+            if label == "whole step":
+                ok = loss_rel <= 1e-5 and np.isclose(fb2, r_fb, rtol=1e-6) and cosine > P["cosine"]
+            else:
+                ok = loss_rel <= T["loss_rtol"] and grad_rel <= T["grad_rel"]
+            if not ok:
+                raise AssertionError(f"parallel (d) {label}: outside its tolerance")
+    print(f"parallel (d): both sharded train steps with spawn and set-up in {train_s:.2f} s on {card}")
+
+    # (e) the gather cascade edge-sharded over 2 ranks, on injected noise:
+    # the published schedule, and the short one where decisions are stable
+    gen = torch.Generator(device=device).manual_seed(P["edge_seed"])
+    ex, ez = pauli_iid(gen, *depolarizing_probs(G["p"]), graph.n, G["batch"])
+    short_iters = P["edge_short"]
+    schedules = {"64/16": CascadeConfig(num_rounds=E["rounds"]),
+                 f"{short_iters[0]}/{short_iters[1]}": CascadeConfig(
+                     num_rounds=E["rounds"], num_iter1=short_iters[0], num_iter2=short_iters[1])}
+    ranks = run_ranks(2, [("decode", dict(edge=2, graph=host, params=weights, cfg=ecfg, noise_x=ex.cpu().numpy(),
+                                          noise_z=ez.cpu().numpy())) for ecfg in schedules.values()], device)
+    nx_, nz_ = (torch.nn.functional.pad(t.to(torch.int32), pad) for t in (ex, ez))
+    sx, sz = mod2_matmul(graph.hx, nz_), mod2_matmul(graph.hz, nx_)
+    for i, (sched, ecfg) in enumerate(schedules.items()):
+        res = [r[i] for r in ranks]
+        llr0 = prior_llr(ecfg.p0, graph.n, G["batch"], graph.n_pad, device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x_ref, z_ref = sandwich_decode(graph, [params], ecfg, llr0, sx, sz, sz, sx)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t1) * 1e3
+        # the unsharded decode's own floor: the prior moved by one ulp (pad rows stay 0)
+        moved = llr0.clone()
+        moved[:, : graph.n] = torch.nextafter(moved[:, : graph.n], torch.tensor(float("inf"), device=device))
+        x_mv, z_mv = sandwich_decode(graph, [params], ecfg, moved, sx, sz, sz, sx)
+        floor = float((~((x_mv == x_ref) & (z_mv == z_ref)).all(dim=0)).float().mean())
+        short = i == 1
+        for r in res:
+            xh, zh = (torch.nn.functional.pad(torch.as_tensor(r[k], device=device).to(torch.int32), pad)
+                      for k in ("x_hat", "z_hat"))
+            agree = ((xh == x_ref) & (zh == z_ref)).all(dim=0)
+            share = float(agree.float().mean())
+            xd, zd = nx_ ^ xh, nz_ ^ zh
+            logical = int((torch.cat([mod2_matmul(graph.hx_perp, xd), mod2_matmul(graph.hz_perp, zd)]) != 0)
+                          .any(dim=0).sum())
+            ler, sig = sigmas(logical, G["batch"], LER_REF)
+            print(f"parallel (e) edge 2 gather cascade {sched} [[882,24]] nG={E['rounds']} p={G['p']} "
+                  f"B={G['batch']}: backend {r['backend']}, decisions agree on {share:.6f} of samples "
+                  f"({int((~agree).sum())} differ; the unsharded decode with the prior moved one ulp changes "
+                  f"{floor:.6f}), LER {ler:.5f}" + ("" if short else f" ({sig:.2f} sigma from {LER_REF})")
+                  + f", {r['seconds'] * 1e3:.3f} ms (unsharded {ref_ms:.3f} ms) on {card}", flush=True)
+            if r["backend"] != backends[2]:
+                raise AssertionError(f"parallel (e): backend {r['backend']}")
+            # the short schedule: per-sample decisions at P["agree"]; the
+            # published one turns ulps into other decisions, so it is held
+            # to its own floor and the LER
+            if short and share < P["agree"]:
+                raise AssertionError(f"parallel (e) {sched}: agreement {share} below {P['agree']}")
+            if not short and (1 - share > P["floor_factor"] * floor
+                              or (device.type == "cuda" and sig >= LER_SIGMAS)):
+                raise AssertionError(f"parallel (e) {sched}: agreement {share} (floor {floor}) or LER {ler} "
+                                     f"outside {LER_SIGMAS} sigma of {LER_REF}")
+        if not all(np.array_equal(r["x_hat"], res[0]["x_hat"]) and np.array_equal(r["z_hat"], res[0]["z_hat"])
+                   for r in res):
+            raise AssertionError(f"parallel (e) {sched}: the edge ranks' replicated decisions differ")
+
+    # weak scaling through cli/bench_scaling.py, 1 and 2 ranks on the card
+    rows = bench_scaling.scaling_rows(bench_scaling._parser().parse_args(
+        P["scaling"] + (["--device", "cpu"] if device.type == "cpu" else [])))
+    for row in rows:
+        print(f"parallel bench_scaling: {json.dumps(row)} on {card}", flush=True)
+        if row["backend"] != backends[row["data_shards"]] or (
+                device.type == "cuda" and min(row["k1_launches_per_rank"]) == 0):
+            raise AssertionError(f"parallel bench_scaling: {row}")
+    out["scaling"] = rows
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1676,8 +1961,10 @@ def main() -> int:
     phase("gather_cascade", t0)
 
     # 9. K1 against its plain version, and both times, at every shape the
-    # main path, the bench, the evaluate CLI and the rescue give it
+    # main path, the bench, the evaluate CLI, the rescue and phase
+    # parallel's ranks give it
     t0 = time.perf_counter()
+    from feedback_gnn_tpu_torch.cli import bench_scaling
     from feedback_gnn_tpu_torch.decoders.cascade import _capacity
 
     E = EVALUATE
@@ -1686,12 +1973,18 @@ def main() -> int:
     cap2 = _capacity(cfg.round_fraction, settings.batch, cfg.qc_batch_tile)
     ecap1 = _capacity(E["compact"], E["batch"], 128)
     ecap2 = _capacity(E["rounds_cap"], E["batch"], 128)
+    local = PARALLEL["batch"] // 2  # (a) and (c): the evaluate cascade on each of 2 data ranks
+    scale = bench_scaling._parser().parse_args(PARALLEL["scaling"])  # no compaction, no prepass
     shapes = [  # (code, batch, iterations, phi form, time the plan grid)
         ("n882", 256, 64, None, True), ("n882", 256, 16, None, True),
         ("n1270", settings.batch, 12, None, True), ("n1270", cap1, 64, None, True),
         ("n1270", cap2, 16, None, True),
         ("n882", E["batch"], E["prepass"], None, False), ("n882", ecap1, 64, None, False),
         ("n882", ecap2, 16, None, False),
+        ("n882", local, E["prepass"], None, False), ("n882", _capacity(E["compact"], local, 128), 64, None, False),
+        ("n882", _capacity(E["rounds_cap"], local, 128), 16, None, False),
+        (scale.code, scale.local_batch, scale.iters1, None, False),
+        (scale.code, scale.local_batch, scale.iters2, None, False),
         ("n882", rescue_cap, 64, "tf", False), ("n882", rescue_cap, 16, "tf", False),
         ("n882", rescue_cap, 64, "accurate", False), ("n882", rescue_cap, 16, "accurate", False),
     ]
@@ -1847,7 +2140,12 @@ def main() -> int:
     gn = run_gnn_bp4(codes, device, card)
     phase("gnn_bp4", t0)
 
-    # 17. where a step's device time goes
+    # 17. multi-device: data-parallel and edge-sharded ranks
+    t0 = time.perf_counter()
+    run_parallel(codes, code882, device, card)
+    phase("parallel", t0)
+
+    # 18. where a step's device time goes
     t0 = time.perf_counter()
     profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
     profile_step(f"bench [[1270,28]] B={settings.batch} p={settings.p}", step, (gen, settings.p),

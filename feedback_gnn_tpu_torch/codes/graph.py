@@ -244,6 +244,9 @@ class QuantumGraph:
     logit_rows_x: RowSet  # rows of pcm_x_perp (gathers llr_x)
     logit_rows_z: RowSet  # rows of pcm_z_perp (gathers llr_z)
     name: str = ""
+    # one edge shard of a graph (parallel/shard.py): CN rows partitioned,
+    # VN degrees kept global
+    is_shard: bool = False
 
     DENSE = ("hx", "hz", "hx_perp", "hz_perp", "lx", "lz")
 

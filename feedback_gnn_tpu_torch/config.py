@@ -4,9 +4,9 @@ cascade depth, batch layout, p-sweep and stopping targets), plus the
 device.
 
 The shipped trained weights are the npz files of the JAX package, read in
-place by path.  The sharded layouts (``--data-shards``/``--edge-shards`` > 1,
-``--multihost``) are parsed but not ported: ``check_unported`` raises for
-them.
+place by path.  ``--data-shards``/``--edge-shards`` lay the run out on a
+('data', 'edge') grid of ranks (parallel/); ``--multihost`` joins a
+process group that ``torchrun`` started instead of spawning the ranks.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ from dataclasses import dataclass, field
 from . import REPO_ROOT
 from .decoders.cascade import CascadeConfig
 
-__all__ = ["EvalConfig", "CODE_REGISTRY", "build_code", "make_eval_parser", "config_from_args",
-           "check_unported"]
+__all__ = ["EvalConfig", "CODE_REGISTRY", "build_code", "make_eval_parser", "config_from_args"]
 
 _WEIGHTS_DIR = os.path.join(REPO_ROOT, "feedback_gnn_tpu", "weights")
 
@@ -62,22 +61,14 @@ class EvalConfig:
     weights: str | None = None  # None -> registry default
     seed: int = 0
     checkpoint: str | None = None  # MC-state resume file
-    data_shards: int = 1  # not ported beyond 1 (ROADMAP A7)
-    edge_shards: int = 1
+    data_shards: int = 1  # ranks of the 'data' axis (Monte-Carlo batch)
+    edge_shards: int = 1  # ranks of the 'edge' axis (CN partition)
     qc_kernel: bool = False  # fused QC BP backend (the CUDA kernel on the card)
-    multihost: bool = False  # not ported (ROADMAP A7)
+    multihost: bool = False  # join the torchrun group instead of spawning the ranks
     device: str | None = None  # None -> the card
 
     def resolve_weights(self) -> str:
         return self.weights or CODE_REGISTRY[self.code]["weights"]
-
-
-def check_unported(cfg: EvalConfig):
-    """Raise for the layouts the port does not run yet."""
-    if cfg.data_shards * cfg.edge_shards > 1 or cfg.multihost:
-        raise NotImplementedError(
-            "sharded and multi-host evaluation (--data-shards/--edge-shards > 1, "
-            "--multihost) is not ported yet: ROADMAP A7")
 
 
 def make_eval_parser() -> argparse.ArgumentParser:
@@ -105,11 +96,12 @@ def make_eval_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint", default=None,
                     help="MC-state JSON for interrupt/resume")
     ap.add_argument("--data-shards", type=int, default=1,
-                    help="not ported beyond 1 (ROADMAP A7)")
+                    help="data-parallel ranks (the batch is split over them)")
     ap.add_argument("--edge-shards", type=int, default=1,
-                    help="not ported beyond 1 (ROADMAP A7)")
+                    help="edge-partition ranks (CN rows split over them; gather decoder only)")
     ap.add_argument("--multihost", action="store_true",
-                    help="not ported (ROADMAP A7)")
+                    help="join the process group torchrun started (env://) instead of "
+                    "spawning the data x edge ranks on this machine")
     ap.add_argument("--qc-kernel", action="store_true",
                     help="use the fused quasi-cyclic BP decode (the CUDA kernel on the "
                     "card; block-circulant codes)")

@@ -12,7 +12,8 @@ The port of ``feedback_gnn_tpu/decoders/bp2.py``:
 
 Messages are slot-major ``[dv, n_pad, B]`` (codes/graph.py).  Outputs keep
 the padded [n_pad, B] shape (0-logit pad rows); slice [:n] for true
-shapes.
+shapes.  ``axis`` (a process group, or None) decodes on one edge shard of
+the graph: the per-VN sums are summed over the group (decoders/bp4.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import pvary
 from ..sim.metrics import llr2mi
 from .cn_update import CN_UPDATES, LLR_MAX
 from .graph_ops import expand_vn, gather_to_cn, pad_rows_to, scatter_from_cn, vn_sum
@@ -38,7 +40,7 @@ class BP2Result(NamedTuple):
 
 def bp2_decode(graph, llr_ch, syndrome, num_iter: int, cn_type: str = "boxplus-phi",
                normalization_factor: float = 1.0, edge_weights=None,
-               track_exit: bool = False) -> BP2Result:
+               track_exit: bool = False, axis=None) -> BP2Result:
     """Run ``num_iter`` binary syndrome-BP iterations.
 
     Args:
@@ -51,6 +53,8 @@ def bp2_decode(graph, llr_ch, syndrome, num_iter: int, cn_type: str = "boxplus-p
       track_exit: record the EXIT trajectory, the Hagenauer MI estimate of
         the VN- and CN-phase messages per iteration (assumes all-zero-
         codeword symmetry).
+      axis: the edge group when ``graph`` is an edge shard, else None
+        (the EXIT trajectory then averages the shard's own edges).
     """
     cn_update = CN_UPDATES[cn_type]
     b = llr_ch.shape[-1]
@@ -72,7 +76,7 @@ def bp2_decode(graph, llr_ch, syndrome, num_iter: int, cn_type: str = "boxplus-p
     ie_v, ie_c = [zero], [zero]
     for _ in range(num_iter):
         # extrinsic VN update
-        total = vn_sum(msg, graph) + llr  # [n_pad, B]
+        total = pvary(vn_sum(msg, graph, axis) + llr, axis)  # [n_pad, B]
         msg_v = expand_vn(total, graph) - msg  # [dv, n_pad, B]
         if track_exit:
             ie_v.append(llr2mi(-msg_v, weight=vn_mask[:, :, None]))
@@ -84,7 +88,7 @@ def bp2_decode(graph, llr_ch, syndrome, num_iter: int, cn_type: str = "boxplus-p
             ie_c.append(llr2mi(-mc, weight=cn_mask[:, :, None]))
         msg = scatter_from_cn(mc, graph)
 
-    logits = -(llr + vn_sum(msg, graph))  # back to the logit convention
+    logits = -(llr + vn_sum(msg, graph, axis))  # back to the logit convention
     hard = (logits > 0.0).to(torch.int32)
     if track_exit:
         return BP2Result(logits, hard, torch.stack(ie_v), torch.stack(ie_c))

@@ -11,6 +11,13 @@ shares the result type, logits and decisions.
 PADDED CONVENTION: tensors keep the aligned padded shapes ([n_pad, B]
 marginals and decisions with zero pad rows, [r_pad, B] logits).  Inputs
 may be padded or true-shaped; they are padded on entry.
+
+``axis`` (a process group, or None) runs the same code on one edge shard
+of the graph (parallel/shard.py): the per-VN sums are summed over the
+group, so the marginals and decisions are replicated, while messages,
+syndromes and check logits stay shard-local.  The marginals are marked
+with ``pvary`` where they enter shard-local work, so that autograd sums
+their cotangents over the group.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import pvary
 from .cn_update import CN_UPDATES, boxplus_rows, cn_update_phi, softplus
 from .graph_ops import expand_vn, gather_to_cn, pad_rows_to, scatter_from_cn, vn_sum
 
@@ -43,15 +51,20 @@ def _logsumexp2(a, b):
     return mx + torch.log(torch.exp(a - mx) + torch.exp(b - mx))
 
 
-def _vn_update(msg_x, msg_z, llr_ch, graph):
+def _marginals(msg_x, msg_z, llr_ch, graph, axis):
+    """(llrx, llry, llrz) [n_pad, B] of the messages, marked for the
+    shard-local work that consumes them."""
+    s_z = vn_sum(msg_z, graph.gz, axis)  # contributes to the X belief
+    s_x = vn_sum(msg_x, graph.gx, axis)  # contributes to the Z belief
+    llr = (s_z + llr_ch[0], s_x + s_z + llr_ch[1], s_x + llr_ch[2])
+    return llr if axis is None else pvary(torch.stack(llr), axis).unbind(0)
+
+
+def _vn_update(msg_x, msg_z, llr_ch, graph, axis=None):
     """Coupled VN update.  Returns (new_msg_x, new_msg_z, llrx, llry, llrz);
     llr* are [n_pad, B]."""
     gx, gz = graph.gx, graph.gz
-    s_z = vn_sum(msg_z, gz)  # contributes to the X belief
-    s_x = vn_sum(msg_x, gx)  # contributes to the Z belief
-    llry = s_x + s_z + llr_ch[1]
-    llrx = s_z + llr_ch[0]
-    llrz = s_x + llr_ch[2]
+    llrx, llry, llrz = _marginals(msg_x, msg_z, llr_ch, graph, axis)
 
     # extrinsic per-edge messages, Hx side (about the Z / Y components)
     llrz_hx = expand_vn(llrz, gx) - msg_x
@@ -92,7 +105,8 @@ def hard_decision(llrx, llry, llrz):
 
 def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
                cn_type: str = "boxplus-phi", normalization_factor: float = 1.0,
-               collect_logits: bool = False, phi_impl: str | None = None) -> BP4Result:
+               collect_logits: bool = False, phi_impl: str | None = None,
+               axis=None) -> BP4Result:
     """Run ``num_iter`` BP4 iterations.
 
     Args:
@@ -104,6 +118,7 @@ def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
         the deep-supervision training loss.
       phi_impl: phi formulation of boxplus-phi CN updates and of the
         check-satisfaction logits (None = the cn_update default).
+      axis: the edge group when ``graph`` is an edge shard, else None.
     """
     if cn_type == "boxplus-phi":
         def cn_update(msg, syn_pm, mask):
@@ -122,7 +137,7 @@ def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
     msg_z = torch.zeros((gz.max_vn_deg, gz.n_pad, b), dtype=torch.float32, device=dev)
     xs, zs = [], []
     for _ in range(num_iter):
-        new_msg_x, new_msg_z, llrx, llry, llrz = _vn_update(msg_x, msg_z, llr_ch, graph)
+        new_msg_x, new_msg_z, llrx, llry, llrz = _vn_update(msg_x, msg_z, llr_ch, graph, axis)
         if collect_logits:
             x_logit, z_logit = _cal_logit(llrx, llry, llrz, graph, phi_impl)
             xs.append(x_logit)
@@ -133,10 +148,7 @@ def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
         msg_z = scatter_from_cn(mcz, gz)
 
     # final marginals and logits
-    s_z, s_x = vn_sum(msg_z, gz), vn_sum(msg_x, gx)
-    llrx = s_z + llr_ch[0]
-    llry = s_x + s_z + llr_ch[1]
-    llrz = s_x + llr_ch[2]
+    llrx, llry, llrz = _marginals(msg_x, msg_z, llr_ch, graph, axis)
     x_logit, z_logit = _cal_logit(llrx, llry, llrz, graph, phi_impl)
 
     logit_stack = None

@@ -17,6 +17,12 @@ rescues.
 
 The GNN gets the semantic logit names: ``logit_hx`` is the per-Hx-row logit
 (z_logit of BP4 in stage mode), ``logit_hz`` the per-Hz-row logit (x_logit).
+
+Two process groups thread through, as the JAX package's mesh axes do:
+``axis``, the edge group of an edge-sharded graph (parallel/shard.py; the
+per-sample flags are or-reduced over it, and the gather decoder sums its VN
+sums over it), and ``data_axis``, the group of the data-parallel ranks
+(each rank draws its own samples, and the counts are summed over it).
 """
 
 from __future__ import annotations
@@ -26,16 +32,23 @@ import warnings
 from dataclasses import dataclass, replace
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from ..channels.pauli import depolarizing_probs, pauli_fixed_weight, pauli_iid
 from ..ops.gf2mat import mod2_matmul
+from ..parallel.collectives import por, psum
 from . import cn_update
 from .bp4 import BP4Result, bp4_decode
 from .bp4_qc import bp4_decode_qc, qc_supported
 from .gnn_feedback import feedback_gnn_apply
 
-__all__ = ["CascadeConfig", "sandwich_decode", "sandwich_eval_step", "prior_llr"]
+__all__ = ["CascadeConfig", "sandwich_decode", "sandwich_eval_step", "prior_llr", "data_seed"]
+
+_UNSHARDED_ROWS = (
+    "{} requires unsharded PCM rows (edge shards 1): the flagged-first gather needs each "
+    "sample's full syndrome on one rank.  Run pure data parallelism (--edge-shards 1, the "
+    "production multi-device mode; README 'Edge partitioning') or drop {}.")
 
 
 @dataclass(frozen=True)
@@ -111,13 +124,15 @@ def _flagged_first(flags, cap):
 
 def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, llr0,
                     syndrome_x, syndrome_z, gt_sx, gt_sz, qc=None, with_overflow: bool = False,
-                    phi_impl: str | None = None):
+                    phi_impl: str | None = None, axis=None):
     """Decode given syndromes.  ``gt_sx``/``gt_sz`` are the target syndromes
     the estimate must reproduce (they equal syndrome_z/syndrome_x's ground
     truth in evaluation).  ``qc`` (a codes.qc.QCPair) selects the fused QC
     decode for every BP run; None the gather decoder.  ``phi_impl`` is the
     phi formulation of every BP run (None = the cn_update default); the
-    rescue stage passes its own through it.
+    rescue stage passes its own through it.  ``axis`` is the edge group
+    when ``graph`` is an edge shard: the gather decoder only, without
+    compaction or rescue.
 
     Returns (x_hat, z_hat) int32 [n_pad, B]; with ``with_overflow`` also a
     0-d int tensor counting DISTINCT flagged samples that did not fit a
@@ -128,6 +143,15 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
         raise ValueError(f"unsupported cn_type {cfg.cn_type!r}")
     hz, hx = graph.hz, graph.hx
 
+    if axis is not None:
+        if qc is not None:
+            raise ValueError("the fused QC decode is shard-local: pass qc=None (the gather "
+                             "decoder) for edge-partitioned rows, or run with edge shards 1")
+        if cfg.compact_fraction:
+            raise ValueError(_UNSHARDED_ROWS.format("compact_fraction", "--compact/--rounds-cap"))
+        if cfg.rescue_phi is not None:
+            raise ValueError(_UNSHARDED_ROWS.format("rescue_phi", "--rescue-phi"))
+
     if qc is not None:
         def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
             return bp4_decode_qc(graph, qc, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
@@ -137,10 +161,12 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
         def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
             del need_logits  # the gather decoder always computes the logits
             return bp4_decode(graph, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
-                              phi_impl=phi_impl)
+                              phi_impl=phi_impl, axis=axis)
 
     def syndromes_differ(x_hat, z_hat, gt):
-        return (torch.cat([mod2_matmul(hz, x_hat), mod2_matmul(hx, z_hat)], dim=0) != gt).any(dim=0)
+        # rows sharded over the edge axis: or-reduce across the shards
+        return por((torch.cat([mod2_matmul(hz, x_hat), mod2_matmul(hx, z_hat)], dim=0) != gt)
+                   .any(dim=0), axis)
 
     def gnn_rounds(res, x_hat, z_hat, syn_x, syn_z, gt, errors):
         """The nG (GNN -> BP-16 -> masked update) rounds."""
@@ -151,7 +177,7 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
                 gnn_params_list[min(r, len(gnn_params_list) - 1)], graph, h_vn,
                 res.z_logit,  # per-Hx-row logits (stage-mode z_logit)
                 res.x_logit,  # per-Hz-row logits (stage-mode x_logit)
-                syn_x, syn_z,
+                syn_x, syn_z, axis,
             )
             res = run_bp(new_llr, syn_x, syn_z, cfg.num_iter2, cfg.factor2)
             # masked update: only still-flagged samples adopt the new estimate
@@ -235,9 +261,17 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
     return finish(x_hat, z_hat, ov_mask)
 
 
+def data_seed(seed: int, data_index: int) -> int:
+    """The generator seed of data rank ``data_index`` in a batch seeded
+    ``seed``: a 64-bit word of ``SeedSequence([seed, data_index])`` (the JAX
+    package folds the data index into the batch's key)."""
+    return int(np.random.SeedSequence([seed, data_index]).generate_state(1, np.uint64)[0])
+
+
 def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig,
                        generator: torch.Generator, p, batch: int, wt: int | None = None,
-                       return_full: bool = False, qc=None, return_overflow: bool = False):
+                       return_full: bool = False, qc=None, return_overflow: bool = False,
+                       axis=None, data_axis=None):
     """Full Monte-Carlo evaluation step on the generator's device: sample
     the channel, compute syndromes, run the cascade, count errors.
 
@@ -245,6 +279,12 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
     ``return_full`` (s_hat [B, mz+mx], ls_hat [B, Rx+Rz]) batch-first over
     the true (unpadded) rows.  With ``return_overflow`` a third output
     counts compaction and rescue overflows (see ``sandwich_decode``).
+
+    ``batch`` is this rank's batch.  ``axis`` is the edge group of an
+    edge-sharded ``graph`` (the flags of a sample are or-reduced over it);
+    ``data_axis`` the data-parallel group, over which the counts are summed
+    in one all-reduce, so every rank returns the global counts.  The
+    caller seeds each data rank's generator (``data_seed``).
     """
     n, n_pad = graph.n, graph.n_pad
     if wt is not None:
@@ -264,7 +304,7 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
 
     llr0 = prior_llr(cfg.p0, n, batch, n_pad=n_pad, device=noise_x.device)
     dec = sandwich_decode(graph, gnn_params_list, cfg, llr0, syndrome_x, syndrome_z, gt_sx, gt_sz,
-                          qc=qc, with_overflow=return_overflow)
+                          qc=qc, with_overflow=return_overflow, axis=axis)
     x_diff = noise_x ^ dec[0]
     z_diff = noise_z ^ dec[1]
 
@@ -274,11 +314,14 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
         s_hat = torch.cat([sx[: graph.gz.num_cn], sz[: graph.gx.num_cn]], dim=0)
         ls_hat = torch.cat([lsx[: graph.hx_perp_rows], lsz[: graph.hz_perp_rows]], dim=0)
         return s_hat.T, ls_hat.T
-    flagged_count = (torch.cat([sx, sz], dim=0) != 0).any(dim=0).sum()
-    logical_count = (torch.cat([lsx, lsz], dim=0) != 0).any(dim=0).sum()
+    flagged = (torch.cat([sx, sz], dim=0) != 0).any(dim=0)
+    logical = (torch.cat([lsx, lsz], dim=0) != 0).any(dim=0)
+    # rows sharded over the edge axis: per-sample or-reduce first
+    counts = por(torch.stack([flagged, logical]), axis).sum(dim=1)
     if return_overflow:
-        return flagged_count, logical_count, dec[2]
-    return flagged_count, logical_count
+        counts = torch.cat([counts, dec[2].reshape(1).to(counts.dtype)])
+    # batch sharded over the data axis: sum the counts across the ranks
+    return tuple(psum(counts, data_axis).unbind(0))
 
 
 def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x, syndrome_z,

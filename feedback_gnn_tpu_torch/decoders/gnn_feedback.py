@@ -14,6 +14,13 @@ Parameters are a plain dict of tensors in the JAX package's layout:
 ``{"llr_inv_embed": {"kernel", "bias"}, "msg_mlp_x": [layer, ...],
 "msg_mlp_z": [...], "embed_mlp": [...]}`` with Keras ``[in, out]`` kernels.
 Layout is batch-last: h_vn is [3, n, B], logits are [num_cn, B].
+
+``axis`` (a process group, or None) runs the step on one edge shard of the
+graph: logits and syndromes are the shard's rows, h_vn is replicated, and
+each VN mean over edges is summed over the group.  What is replicated (the
+per-VN part of the edge MLP, its parameters) is marked with ``pvary``
+where it meets the shard's edges, so autograd sums its cotangents over the
+group.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from ..codes.graph import TannerGraph
 from ..ops.dense import dense_bl, init_dense, init_mlp, mlp_bl
+from ..parallel.collectives import psum, pvary, pvary_tree
 
 __all__ = [
     "init_feedback_gnn", "feedback_gnn_apply", "load_weights", "load_reference_weights",
@@ -113,14 +121,15 @@ def _mlp_all_tanh(x, layers):
     return mlp_bl(x, layers, [torch.tanh] * len(layers))
 
 
-def _vn_mean(messages, graph: TannerGraph):
+def _vn_mean(messages, graph: TannerGraph, axis=None):
     """Masked mean of per-edge (slot-major) messages at each VN:
-    [F, dv, n_pad, B] -> [F, n_pad, B]."""
-    s = (messages * graph.vn_mask[None, :, :, None]).sum(dim=1)
+    [F, dv, n_pad, B] -> [F, n_pad, B].  The division is by the true
+    (global) degree, so the partial sums of edge shards add up."""
+    s = psum((messages * graph.vn_mask[None, :, :, None]).sum(dim=1), axis)
     return s / graph.vn_deg.clamp_min(1.0)[None, :, None]
 
 
-def _edge_messages(mlp, h_vn, h_cn_e, g: TannerGraph):
+def _edge_messages(mlp, h_vn, h_cn_e, g: TannerGraph, axis=None):
     """Per-VN mean of the edge MLP over the VN's edges.
 
     Fast path (the reference's 2-layer MLP: tanh hidden, linear out): layer
@@ -134,20 +143,21 @@ def _edge_messages(mlp, h_vn, h_cn_e, g: TannerGraph):
         u = torch.tensordot(w0[1:], h_vn, dims=([0], [0]))  # [H, n_pad, B]
         if b0 is not None:
             u = u + b0[:, None, None]
-        w_cn = w0[0][:, None, None]  # [H, 1, 1]
+        u, w_cn = pvary(u, axis), pvary(w0[0][:, None, None], axis)  # [H, 1, 1]
         acc = None
         for d in range(g.max_vn_deg):
             t = torch.tanh(u + w_cn * h_cn_e[d][None]) * g.vn_mask[d][None, :, None]
             acc = t if acc is None else acc + t
-        t = acc / g.vn_deg.clamp_min(1.0)[None, :, None]
+        t = psum(acc / g.vn_deg.clamp_min(1.0)[None, :, None], axis)
         return dense_bl(t, mlp[1]["kernel"], mlp[1].get("bias"))
     # general path: materialise per-edge features
     dv = g.max_vn_deg
+    h_vn = pvary(h_vn, axis)
     feat = torch.cat([h_cn_e[None], h_vn[:, None].expand((3, dv) + h_vn.shape[1:])], dim=0)
-    return _vn_mean(_mlp_tanh(feat, mlp), g)
+    return _vn_mean(_mlp_tanh(feat, pvary_tree(mlp, axis)), g, axis)
 
 
-def feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, syndrome_z):
+def feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, syndrome_z, axis=None):
     """One feedback-GNN step.
 
     Args:
@@ -155,6 +165,7 @@ def feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, synd
       logit_hx / logit_hz: [mx, B] / [mz, B] per-check logits (padded rows
         accepted).
       syndrome_x / syndrome_z: [mx, B] / [mz, B] in {0,1}.
+      axis: the edge group when ``graph`` is an edge shard, else None.
 
     Returns the new LLR init [3, n_pad, B] in (x, y, z) order; its pad rows
     are generally nonzero (MLP biases).
@@ -172,8 +183,8 @@ def feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, synd
 
     # per-vn-slot CN features [dv, n_pad, B]; the pad sentinel (num_cn)
     # indexes a zero pad row of h_cn
-    m_x = _edge_messages(params["msg_mlp_x"], h_vn, h_cn_x[gx.edge_cn_byslot], gx)
-    m_z = _edge_messages(params["msg_mlp_z"], h_vn, h_cn_z[gz.edge_cn_byslot], gz)
+    m_x = _edge_messages(params["msg_mlp_x"], h_vn, h_cn_x[gx.edge_cn_byslot], gx, axis)
+    m_z = _edge_messages(params["msg_mlp_z"], h_vn, h_cn_z[gz.edge_cn_byslot], gz, axis)
 
     embed_in = torch.cat([m_x, m_z, h_vn], dim=0)  # [2*msg+3, n_pad, B]
     h = _mlp_all_tanh(embed_in, params["embed_mlp"])

@@ -15,8 +15,13 @@ Layout: batch-last; embeddings are [d_e, nodes, B] with the feature axis
 leading (dense layers contract the leading axis, ops/dense.py).  The graph
 is a ``QuantumGraph`` of tensors, the row sets those of
 ``make_logit_rowsets``.  Plain PyTorch, as the JAX package's decoder is
-plain XLA.  The JAX package's ``axis_name`` (a reduction across an
-edge-sharded mesh) belongs to multi-device runs and raises here.
+plain XLA.  ``axis`` (a process group, or None) runs the decoder on one
+edge shard of the graph (parallel/shard.py; its row sets from
+``make_logit_rowsets`` of the shard): the VN reductions are completed over
+the group, so h_vn and the decisions are replicated while the CN
+embeddings and logits stay shard-local; what is replicated is marked with
+``pvary`` where it enters shard-local work.  The max/min reductions across
+shards are forward-only, as JAX's ``pmax``/``pmin`` are.
 
 ``load_gnn_bp4_weights`` reads a parameter file that the JAX package's
 ``save_pytree`` wrote; ``load_shipped`` the trained weights of
@@ -35,6 +40,7 @@ import torch
 from ..codes.graph import build_rowset
 from ..io.checkpoint import flatten_with_paths, load_pytree
 from ..ops.dense import dense_bl, init_dense, init_mlp
+from ..parallel.collectives import pmax, pmin, psum, pvary, pvary_tree
 from .bp4 import hard_decision, quaternary_to_binary_llrs
 from .cn_update import boxplus_rows
 
@@ -139,8 +145,9 @@ def _cn_slot_features(h_vn, h_cn, graph):
     return torch.cat([h_vn_e, h_cn[:, None].expand_as(h_vn_e)], dim=0)
 
 
-def _reduce_slots(messages, mask, deg, reduce_op: str):
-    """Aggregate per-slot messages [m, d, N_pad, B] at the nodes -> [m, N_pad, B].
+def _reduce_slots(messages, mask, deg, reduce_op: str, axis=None):
+    """Aggregate per-slot messages [m, d, N_pad, B] at the nodes -> [m, N_pad, B],
+    completed over the edge group ``axis`` (the VN side of an edge shard).
 
     max/min split the gradient evenly among tied slots (``amax``/``amin``,
     as JAX's reductions do) and give 0 at degree-0 nodes; mean divides by
@@ -149,12 +156,12 @@ def _reduce_slots(messages, mask, deg, reduce_op: str):
         big = 3.4e38
         valid = (mask > 0)[None, :, :, None]
         if reduce_op == "max":
-            red = torch.where(valid, messages, -big).amax(dim=1)
+            red = pmax(torch.where(valid, messages, -big).amax(dim=1), axis)
         else:
-            red = torch.where(valid, messages, big).amin(dim=1)
+            red = pmin(torch.where(valid, messages, big).amin(dim=1), axis)
         # degree-0 (padding) nodes: no incoming messages -> 0
-        return torch.where((deg > 0)[None, :, None], red, 0.0)
-    s = (messages * mask[None, :, :, None]).sum(dim=1)
+        return torch.where((psum(deg, axis) > 0)[None, :, None], red, 0.0)
+    s = psum((messages * mask[None, :, :, None]).sum(dim=1), axis)
     if reduce_op == "sum":
         return s
     if reduce_op == "mean":
@@ -167,13 +174,15 @@ def _inv_embed(params, h_vn):
     return dense_bl(h_vn, layer["kernel"], layer.get("bias"))  # [3, n_pad, B]
 
 
-def _cal_logit(params, lrowsets, h_vn):
+def _cal_logit(params, lrowsets, h_vn, axis=None):
     """llr_inv_embed -> binary LLRs -> boxplus over the [hz; lz] / [hx; lx]
     rows.  Returns (hx_logit, hz_logit, x_perp_logit, z_perp_logit,
     (llrx, llry, llrz))."""
     emb = _inv_embed(params, h_vn)
     llrx, llry, llrz = emb[0], emb[1], emb[2]
     llr_x, llr_z = quaternary_to_binary_llrs(llrx, llry, llrz)
+    if axis is not None:  # replicated LLRs into the shard's rows
+        llr_x, llr_z = pvary(torch.stack([llr_x, llr_z]), axis).unbind(0)
     rows_hx, rows_hz, rows_lx, rows_lz = lrowsets
     hz_logit = boxplus_rows(llr_x, rows_hz)  # X-error checks
     lz_logit = boxplus_rows(llr_x, rows_lz)
@@ -204,16 +213,22 @@ def make_logit_rowsets(graph, device=None):
 
 
 def gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg: GNNBP4Config,
-                  collect_logits: bool = False, axis_name=None):
+                  collect_logits: bool = False, axis=None):
     """Decode from the syndromes alone.
 
     syndrome_x / syndrome_z: [mx or c_pad, B] / [mz or c_pad, B] in {0, 1}.
     Returns (x_hat, z_hat, stack): int32 [n_pad, B] decisions, and with
     ``collect_logits`` the per-iteration (x_perp, z_perp) logits (or
-    (p_x, p_z) with ``loss_type="sine"``), else None.
+    (p_x, p_z) with ``loss_type="sine"``), else None.  ``axis`` is the edge
+    group when ``graph`` is an edge shard (the logits are the shard's rows).
     """
-    if axis_name is not None:
-        raise NotImplementedError("edge-sharded GNN_BP4 (axis_name) is not ported yet: ROADMAP A7")
+    if axis is not None and cfg.use_attributes:
+        raise ValueError("use_attributes with an edge axis: the attributes are laid out on "
+                         "the unsharded graph")
+    # the message and CN-embedding MLPs see only shard-local features
+    local = {k: pvary_tree(v, axis) for k, v in params.items() if k.startswith("cn_") or
+             k.startswith("vn_msg")}
+    params = {**params, **local}
     act = _act(cfg.activation)
     gx, gz = graph.gx, graph.gz
     b = syndrome_x.shape[-1]
@@ -243,7 +258,7 @@ def gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg: GNNBP4Co
         # "from VN to CN": from = the VN endpoint, to = the CN endpoint
         out = []
         for side, g, h_cn, logit in (("x", gx, h_cn_x, hx_logit), ("z", gz, h_cn_z, hz_logit)):
-            msg = _mlp(cat_attr(_cn_slot_features(h_vn, h_cn, g), f"cn_msg_{side}"),
+            msg = _mlp(cat_attr(_cn_slot_features(pvary(h_vn, axis), h_cn, g), f"cn_msg_{side}"),
                        params[f"cn_msg_mlp_{side}"], act)  # [m, dc, c_pad, B]
             red = cat_attr(_reduce_slots(msg, g.cn_mask, g.cn_deg, cfg.reduce_op), f"cn_node_{side}")
             del msg
@@ -254,10 +269,10 @@ def gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg: GNNBP4Co
     def update_vn(h_cn_x, h_cn_z, h_vn):
         red = []
         for side, g, h_cn, syn_pm in (("x", gx, h_cn_x, syn_x_pm), ("z", gz, h_cn_z, syn_z_pm)):
-            msg = _mlp(cat_attr(_vn_slot_features(h_cn, h_vn, g), f"vn_msg_{side}"),
+            msg = _mlp(cat_attr(_vn_slot_features(h_cn, pvary(h_vn, axis), g), f"vn_msg_{side}"),
                        params[f"vn_msg_mlp_{side}"], act)  # [m, dv, n_pad, B]
             msg = msg * syn_pm[g.edge_cn_byslot][None]  # syndrome-signed messages
-            red.append(_reduce_slots(msg, g.vn_mask, g.vn_deg, cfg.reduce_op))
+            red.append(_reduce_slots(msg, g.vn_mask, g.vn_deg, cfg.reduce_op, axis))
             del msg
         # one VN node attribute, concatenated onto m_z only
         red[1] = cat_attr(red[1], "vn_node")
@@ -271,7 +286,7 @@ def gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg: GNNBP4Co
     llrs = None
     for i in range(cfg.num_iter):
         h_vn = update_vn(h_cn_x, h_cn_z, h_vn)
-        hx_logit, hz_logit, x_perp, z_perp, llrs = _cal_logit(params, lrowsets, h_vn)
+        hx_logit, hz_logit, x_perp, z_perp, llrs = _cal_logit(params, lrowsets, h_vn, axis)
         if collect_logits:
             stack.append(_cal_prob(params, h_vn) if cfg.loss_type == "sine" else (x_perp, z_perp))
         if i == cfg.num_iter - 1:

@@ -5,14 +5,16 @@ see codes/graph.py).  Per-node reductions are leading-axis sums, and the
 VN<->CN permutation is one flat row gather per direction.  Pad slots hold
 exact zeros (graph invariants I1-I3), so no mask is needed in the sums.
 
-The JAX package's ``axis_name`` (a psum of partial VN sums across an
-edge-partitioned mesh) belongs to multi-device execution and is not
-ported here.
+``vn_sum`` takes the edge axis ``axis`` (a process group, or None): with
+CN-partitioned edges each rank holds partial VN sums, and one sum over the
+group completes them (parallel/shard.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.collectives import psum
 
 __all__ = ["vn_sum", "gather_to_cn", "scatter_from_cn", "expand_vn", "pad_rows_to"]
 
@@ -23,9 +25,10 @@ def pad_rows_to(x, rows):
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[-2]))
 
 
-def vn_sum(msg, graph):
-    """Per-VN sum of edge messages: [dv, n_pad, B] -> [n_pad, B]."""
-    return msg.sum(dim=0)
+def vn_sum(msg, graph, axis=None):
+    """Per-VN sum of edge messages: [dv, n_pad, B] -> [n_pad, B], summed
+    over the edge group ``axis`` when the graph is a shard."""
+    return psum(msg.sum(dim=0), axis)
 
 
 def expand_vn(vals, graph):

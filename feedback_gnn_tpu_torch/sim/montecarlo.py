@@ -109,6 +109,13 @@ def sim_ler(
     ``torch.distributed`` rank when it is initialised, else 0) into every
     seed, for independent per-process sweeps; ``write_checkpoint`` lets
     only one process of several write the shared checkpoint.
+
+    A sharded sweep (parallel/api.py's step, one process per rank) passes
+    ``fold_process_key=False``, so every rank seeds the same batch and the
+    step derives each data rank's stream from it; the same
+    ``checkpoint_path`` to every rank, with ``write_checkpoint`` on rank 0
+    only.  The step sums the counts over the ranks, so the restored state
+    and every stop decision agree on all ranks, as their collectives need.
     """
     ps = np.asarray(ps, np.float64)
     npts = len(ps)

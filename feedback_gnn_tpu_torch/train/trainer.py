@@ -12,8 +12,9 @@ Parameters are the JAX layout's dict of leaf tensors
 (``decoders.gnn_feedback``); the optimizer state is a ``torch.optim.Adam``
 over those leaves in the checkpoint's key order, and a step updates them
 in place.  The graph is a ``QuantumGraph`` of tensors on the training
-device.  The JAX package's ``axis_name`` (edge-sharded training) is not
-ported.
+device.  ``axis`` (the edge group of an edge-sharded graph, or None) runs
+both stages on one edge shard; parallel/api.py's ``make_sharded_train_step``
+drives them over a grid of ranks.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def _syndromes(graph, noise_x, noise_z):
 
 
 @torch.no_grad()
-def stage_one_features(graph, cfg: TrainConfig, noise_x, noise_z):
+def stage_one_features(graph, cfg: TrainConfig, noise_x, noise_z, axis=None):
     """Frozen BP4 pass of ``cfg.num_iter1`` iterations: no autograd graph.
 
     noise_x / noise_z: [n, B] {0,1}.  Returns (h_vn [3, n_pad, B],
@@ -95,25 +96,29 @@ def stage_one_features(graph, cfg: TrainConfig, noise_x, noise_z):
     noise_x, noise_z = _pad_noise(graph, noise_x), _pad_noise(graph, noise_z)
     syndrome_x, syndrome_z = _syndromes(graph, noise_x, noise_z)
     llr0 = prior_llr(cfg.p0, graph.n, noise_x.shape[-1], n_pad=graph.n_pad, device=noise_x.device)
-    res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, cfg.num_iter1, cfg.cn_type, cfg.factor1)
+    res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, cfg.num_iter1, cfg.cn_type, cfg.factor1,
+                     axis=axis)
     h_vn = torch.stack([res.llrx, res.llry, res.llrz], dim=0)
     # z_logit = per-Hx-row logits in stage mode (see cascade.py)
     return h_vn, res.z_logit, res.x_logit
 
 
-def stage_two_loss(params, graph, cfg: TrainConfig, noise_x, noise_z, h_vn, logit_hx, logit_hz):
+def stage_two_loss(params, graph, cfg: TrainConfig, noise_x, noise_z, h_vn, logit_hx, logit_hz,
+                   axis=None):
     """GNN + BP4 of ``cfg.num_iter2`` iterations + deep-supervision loss.
 
     Returns (loss, (s_hat, ls_hat)): the 0-d loss, and the residual
-    syndromes [mz+mx, B] and logical syndromes [Rx+Rz, B] for monitoring."""
+    syndromes [mz+mx, B] and logical syndromes [Rx+Rz, B] for monitoring
+    (the shard's rows under edge sharding)."""
     noise_x, noise_z = _pad_noise(graph, noise_x), _pad_noise(graph, noise_z)
     syndrome_x, syndrome_z = _syndromes(graph, noise_x, noise_z)
-    new_llr = feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, syndrome_z)
+    new_llr = feedback_gnn_apply(params, graph, h_vn, logit_hx, logit_hz, syndrome_x, syndrome_z,
+                                 axis)
     res = bp4_decode(graph, new_llr, syndrome_x, syndrome_z, cfg.num_iter2, cfg.cn_type,
-                     cfg.factor2, collect_logits=True)
+                     cfg.factor2, collect_logits=True, axis=axis)
     loss = deep_supervision_loss(res.logit_stack, syndrome_x, syndrome_z, cfg.num_iter2,
                                  cfg.loss_from, row_valid_x=graph.logit_rows_x.row_valid,
-                                 row_valid_z=graph.logit_rows_z.row_valid)
+                                 row_valid_z=graph.logit_rows_z.row_valid, axis=axis)
     x_diff = noise_x ^ res.x_hat
     z_diff = noise_z ^ res.z_hat
     s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)])

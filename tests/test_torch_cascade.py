@@ -180,22 +180,13 @@ def test_entry_runs_on_cpu():
     assert 0 <= int(flagged) <= 256 and 0 <= int(logical) <= 256
 
 
-@pytest.mark.parametrize("unported", ["--data-shards 2", "--edge-shards 2", "--multihost",
-                                      "qc_msg_dtype=bfloat16"])
+@pytest.mark.parametrize("unported", ["qc_msg_dtype=bfloat16"])
 def test_unported_paths_raise(gb48, unported):
-    """What stays unported raises: the sharded and multi-host layouts
-    (parsed, then refused by the evaluate CLI) and the bfloat16 message
-    carry of the QC decode."""
-    if unported == "qc_msg_dtype=bfloat16":
-        with pytest.raises(NotImplementedError, match="float32"):
-            gb48.run_port(qc_msg_dtype="bfloat16")
-        return
-    from feedback_gnn_tpu_torch.cli import evaluate
-    from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
-
-    cfg = config_from_args(make_eval_parser().parse_args(unported.split() + ["--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        evaluate.run(cfg)
+    """What stays unported raises: the bfloat16 message carry of the QC
+    decode.  (The sharded and multi-host layouts run:
+    tests/test_torch_parallel*.py hold them.)"""
+    with pytest.raises(NotImplementedError, match="float32"):
+        gb48.run_port(qc_msg_dtype="bfloat16")
 
 
 @pytest.mark.slow

@@ -92,7 +92,9 @@ def test_port_imports_no_jax():
         "             'cli.evaluate', 'cli.osd_eval', 'cli.bench', 'train.loss', 'train.trainer',\n"
         "             'train.data', 'io.checkpoint', 'cli.train', 'cli.train_from_scratch',\n"
         "             'cli.generate_dataset', 'decoders.gnn_full', 'channels.discrete',\n"
-        "             'cli.train_gnn_bp4', 'cli.qldpc_codes', 'cli.n882', 'cli.n1270']:\n"
+        "             'cli.train_gnn_bp4', 'cli.qldpc_codes', 'cli.n882', 'cli.n1270',\n"
+        "             'parallel', 'parallel.mesh', 'parallel.collectives', 'parallel.shard',\n"
+        "             'parallel.api', 'parallel.launch', 'parallel.workers', 'cli.bench_scaling']:\n"
         "    assert pkg.__name__ + '.' + name in mods, name\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"

@@ -216,12 +216,12 @@ def test_load_rejects_other_configuration(tmp_path):
 
 
 def test_axis_name_and_sine_loss_raise(gb48):
+    """The sine loss has no perp-row logits for the BCE.  (The edge axis
+    runs: tests/test_torch_parallel.py holds it against the unsharded
+    decoder.)"""
     _, _, graph, trs = gb48
     cfg = tg.GNNBP4Config(**SMALL)
     params = tg.init_gnn_bp4(torch.Generator().manual_seed(0), cfg, graph)
-    syn = torch.zeros((graph.gx.num_cn, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tg.gnn_bp4_apply(params, graph, trs, syn, syn, cfg, axis_name="edges")
     noise = torch.zeros((graph.n, 4))
     with pytest.raises(ValueError, match="boxplus-phi"):
         tg.gnn_bp4_loss(params, graph, trs, cfg._replace(loss_type="sine"), noise, noise)
