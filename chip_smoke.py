@@ -138,8 +138,18 @@ H100_SMEM_BYTES = 128 * 132 * 1.98e9
 PROBE_REPS, PROBE_PLAIN_REPS = 200, 20
 PHI_OPS = {"phi_softplus_expm1": 10, "phi_log_tanh": 6, "phi_exp_log1p": 10}
 # shared-memory bytes per element and iteration of the loops (csrc/probes.cu's
-# resident_iterations): the element read and written, and a gather's index read
-LOOP_SMEM_BYTES = {"gather_loop": 12, "take_along_loop": 12, "roll_loop": 8}
+# resident_loop): the element read and written.  The index does not change
+# across iterations and need be read only once (the loops hold it in
+# registers); the bound that also charged a gather's index read every
+# iteration, 12 B, is printed beside for comparison with older records.
+LOOP_SMEM_BYTES = {"gather_loop": 8, "take_along_loop": 8, "roll_loop": 8}
+LOOP_SMEM_BYTES_WITH_INDEX = {"gather_loop": 12, "take_along_loop": 12}
+# The probe kernels' times before the redesign of the gather and shift
+# kernels (single passes a thread an element, loops a block loading its
+# column alone), microseconds, by this script on an NVIDIA H100 80GB HBM3
+# at 700 W (graphs of 200): a probe slower than before shows here
+PROBE_BEFORE_US = {"k1": 3.11, "k2": 1.91, "k2b": 1.95, "k3": 3.08, "k4": 1.53, "k5": 3.25, "k6": 43.78,
+                   "ka": 3.31, "kb": 3.22, "kc": 2.64, "kd": 2.97, "ke": 45.40, "kf": 38.64}
 
 # Training on [[882,24]] at full width (the shipped GNN's 20 message dims
 # and 40 hidden units, the published BP4-64 / GNN + BP4-16 schedule, B=100):
@@ -194,6 +204,10 @@ GNN_BP4 = dict(
     ler=[("n882", 0.03, 170, 102400, 50, True), ("n882", 0.02, 37, 102400, 50, False),
          ("gb48", 0.05, 3578, 40960, 20, True), ("gb48", 0.03, 836, 40960, 20, True)],
     precision_diag=[("n882", 0.03, 170, 102400, 50, False)],
+    # the JAX package on the CPU (float32) on the n882 run's own keys
+    # (fold_in(fold_in(PRNGKey(0), 5000 + b), 300), b < 50, B=2048): 217,
+    # against the TPU run's 170; printed beside, not checked
+    jax_cpu={("n882", 0.03): (217, 102400)},
     check_batch=256, check_p=0.03, stack_rel=1e-3, ulp_factor=2.0, ulp_seed=5, decisions=0.9999,
     train_batch=120, train_p=0.03, loss_rtol=1e-4, grad_rel=1e-3, rate_steps=20,
     cli=["--code", "n882", "--steps", "200", "--train-p", "0.03", "--eval-p", "0.03",
@@ -711,19 +725,19 @@ def probe_library(p):
     return None
 
 
-def probe_bounds_ms(p, out):
+def probe_bounds_ms(p, out, smem_bytes=LOOP_SMEM_BYTES):
     """The probe's least time on an H100, (ms, by, memory), the largest of:
     its inputs read once and its output written once over the memory rate;
     its float32 operations (one multiply per element and iteration in the
     loops, phi's PHI_OPS) over the f32 rate; and for the loops the bytes
-    each iteration moves through shared memory (LOOP_SMEM_BYTES) over its
-    rate.  ``memory`` names the memory whose bytes bind, None if operations
-    do."""
+    each iteration moves through shared memory (``smem_bytes`` an element)
+    over its rate.  ``memory`` names the memory whose bytes bind, None if
+    operations do."""
     nbytes = sum(t.numel() * t.element_size() for t in p.args if torch.is_tensor(t))
     nbytes += out.numel() * out.element_size()
     ops = out.numel() * (PHI_OPS.get(p.name, 0) + (p.iters if p.iters > 1 else 0))
     t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
-    t_smem = p.iters * LOOP_SMEM_BYTES.get(p.name, 0) * out.numel() / H100_SMEM_BYTES
+    t_smem = p.iters * smem_bytes.get(p.name, 0) * out.numel() / H100_SMEM_BYTES
     t = max(t_bytes, t_ops, t_smem)
     if t == t_ops:
         return 1e3 * t, "operations", None
@@ -751,6 +765,43 @@ def loop_bank_probe(p, per_iter_us, card):
           f"iteration {ident_us:.4f} us against {per_iter_us:.4f} us on the random one on {card}")
 
 
+def loop_plan_grid(p, card):
+    """The loop ``p`` under other launch plans than _loop_plan's: clusters of
+    1, 2, 4 and 8 columns, and of 8 with each block asking for more than
+    half an SM's shared memory (one block an SM).  Each held bit for bit
+    against the plain version, timed at 64 and 2 iterations, printed with
+    the clusters the card holds at once."""
+    from feedback_gnn_tpu_torch import probes
+    from feedback_gnn_tpu_torch.decoders.bp4_qc import SM_BLOCK_RESERVED, SM_SMEM
+
+    x = p.args[0]
+    base = probes._loop_plan(*x.shape)
+    kind = {"gather_loop": 0, "take_along_loop": 1, "roll_loop": 2}[p.name]
+    if kind == 2:
+        def run(plan, iters):
+            return probes._launch_shift(p.name, x, -probes.ROLL_SHIFT, x.shape[0], iters, probes.LOOP_SCALE, plan)
+    else:
+        def run(plan, iters):
+            return probes._launch_gather(p.name, x, p.args[1], 0, iters, probes.LOOP_SCALE, plan)
+    ref = p.plain(*p.args)
+    one_per_sm = SM_SMEM // 2 - SM_BLOCK_RESERVED + 4
+    for cluster, smem in [(1, base.smem_bytes), (2, base.smem_bytes), (4, base.smem_bytes), (8, base.smem_bytes),
+                          (8, max(base.smem_bytes, one_per_sm))]:
+        plan = probes.LoopPlan(cluster, -(-x.shape[1] // cluster) * cluster, base.threads, base.rows_per_thread,
+                               smem)
+        out = run(plan, p.iters)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{p.key} under {plan} disagrees with its plain version")
+        full_ms = graph_ms(lambda: run(plan, p.iters), reps=PROBE_REPS)
+        two_ms = graph_ms(lambda: run(plan, 2), reps=PROBE_REPS)
+        per_us = (full_ms - two_ms) / (p.iters - 2) * 1e3
+        print(f"  {p.key} plan cluster={cluster} threads={plan.threads}x{plan.rows_per_thread} smem={smem} "
+              f"({probes.loop_clusters(kind, plan)} clusters at once{', chosen' if plan == base else ''}): "
+              f"{full_ms * 1e3:.3f} us a call, {per_us:.4f} us an iteration, fixed "
+              f"{full_ms * 1e3 - p.iters * per_us:.3f} us on {card}")
+
+
 def run_probes(device, card):
     """probes.main(), the entry point of the Pallas probe scripts' port, with
     the launch counts reset just before and read just after; then each probe
@@ -766,6 +817,15 @@ def run_probes(device, card):
     print(f"probes launches={probe_counts}")
     if any(probe_counts[nm] < 1 for nm in probes.WRAPPERS) or probe_counts["K1"] or probe_counts["K2"]:
         raise AssertionError(f"kernel launches {probe_counts} in probes.main()")
+    # the launch floor: the gather kernel on a [1, 1] input, timed as the
+    # probes are (a graph of PROBE_REPS), the least a probe's call can take
+    one = torch.ones((1, 1), device=device)
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    if not torch.equal(probes.take_rows(one, zero), one):
+        raise AssertionError("take_rows on [1, 1] disagrees with its input")
+    floor_ms = graph_ms(lambda: probes.take_rows(one, zero), reps=PROBE_REPS)
+    print(f"probes launch floor: take_rows on [1, 1] {floor_ms * 1e3:.4f} us a call (graph of "
+          f"{PROBE_REPS}) on {card}", flush=True)
     probe_rows = []
     for p in probes.probe_cases(probes.probe_inputs(device)):
         out = p.fn(*p.args)
@@ -773,9 +833,10 @@ def run_probes(device, card):
         torch.cuda.synchronize()
         err = probes.compare(p, out, ref)
         # these calls take microseconds on the card, less than the host
-        # spends launching them: time them in CUDA graphs, and show the
-        # host-paced time of back-to-back eager calls beside
-        k_ms = graph_ms(lambda: p.fn(*p.args), reps=PROBE_REPS)
+        # spends launching them: time them in CUDA graphs (the median of
+        # three), and show the host-paced time of back-to-back eager calls
+        # beside
+        k_ms = statistics.median(graph_ms(lambda: p.fn(*p.args), reps=PROBE_REPS) for _ in range(3))
         eager_ms = time_ms(lambda: p.fn(*p.args), reps=PROBE_REPS)
         pl_ms = graph_ms(lambda: p.plain(*p.args), reps=PROBE_PLAIN_REPS)
         lib = probe_library(p)
@@ -785,19 +846,31 @@ def run_probes(device, card):
                 raise AssertionError(f"{p.key}: the library call disagrees with the plain version")
             lib_ms = graph_ms(lib, reps=PROBE_REPS)
         b_ms, b_by, b_mem = probe_bounds_ms(p, out)
+        before_us = PROBE_BEFORE_US[p.key]
         print(f"probe {p.key} {p.name} {list(p.args[0].shape)}: max_abs_err={err:.3e} "
               f"kernel {k_ms:.5f} ms (eager back to back {eager_ms:.5f} ms), plain {pl_ms:.5f} ms, "
               "library " + (f"{lib_ms:.5f} ms" if lib_ms is not None else "none")
               + f", bound {b_ms:.5f} ms ({b_by}" + (f" through {b_mem}" if b_mem else "")
-              + f") on {card}", flush=True)
+              + f"), launch floor {floor_ms:.5f} ms; before the redesign {before_us:.2f} us"
+              + (" (SLOWER than before)" if k_ms * 1e3 > before_us else "") + f" on {card}", flush=True)
+        row = {}
+        if p.name in LOOP_SMEM_BYTES_WITH_INDEX:
+            old_ms = probe_bounds_ms(p, out, LOOP_SMEM_BYTES_WITH_INDEX)[0]
+            print(f"  {p.key} bound with the index read every iteration (12 B, the older bound): "
+                  f"{old_ms:.5f} ms; with the index once (8 B): {b_ms:.5f} ms")
         if p.iters > 1:  # the loops: what one more iteration on chip costs (a
-            # single pass takes another route, so the yardstick is two)
+            # single pass takes another route, so the yardstick is two), and
+            # what the call costs besides its iterations
             two_ms = graph_ms(lambda: p.fn(*p.args, iters=2), reps=PROBE_REPS)
             per_iter_us = (k_ms - two_ms) / (p.iters - 2) * 1e3
+            fixed_us = k_ms * 1e3 - p.iters * per_iter_us
             print(f"  {p.key} two iterations per call: {two_ms:.5f} ms; each further iteration "
-                  f"{per_iter_us:.4f} us, on-chip bound {b_ms / p.iters * 1e3:.4f} us on {card}")
+                  f"{per_iter_us:.4f} us, on-chip bound {b_ms / p.iters * 1e3:.4f} us; fixed part "
+                  f"{fixed_us:.4f} us (call less {p.iters} iterations) on {card}")
+            row = {"per_iter_us": per_iter_us, "fixed_us": fixed_us}
             if p.name == "gather_loop":
                 loop_bank_probe(p, per_iter_us, card)
+            loop_plan_grid(p, card)
         if not p.exact:  # phi: the fast transcendentals, timed and held to float64
             f_ms = graph_ms(lambda: p.fn(*p.args, fast=True), reps=PROBE_REPS)
             ref64 = probes.phi_reference(p.args[0])
@@ -818,6 +891,8 @@ def run_probes(device, card):
             "bound_by": b_by,
             "bound_memory": b_mem,
             "library_ms": lib_ms,
+            "launch_floor_ms": floor_ms,
+            **row,
         })
     return probe_rows
 
@@ -1415,6 +1490,12 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
         return rows, missed
 
     rows, missed = ler_rows("", G["ler"])
+    for name, p, logical, blocks, _, _ in rows:
+        if (name, p) in G["jax_cpu"]:
+            ref, ref_blocks = G["jax_cpu"][(name, p)]
+            print(f"gnn_bp4 [[{name}]] p={p}: logical {logical}/{blocks} against the JAX package's "
+                  f"{ref}/{ref_blocks} on the CPU on the TPU run's keys: "
+                  f"{two_sample_sigmas(logical, blocks, ref, ref_blocks):+.2f} sigma (not checked)", flush=True)
     # the JAX runs trained and counted on a TPU, whose default float32
     # matmul rounds its inputs to bfloat16: the same count with the dense
     # layers' inputs so rounded, printed beside the float32 one

@@ -117,10 +117,12 @@ def load_kernels() -> ctypes.CDLL:
     dll.fgt_bp2_qc_launch.restype = i
     dll.fgt_bp2_qc_occupancy.argtypes = [i] * 5 + [p]
     dll.fgt_bp2_qc_occupancy.restype = i
-    dll.fgt_probe_gather_launch.argtypes = [p, p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]
+    dll.fgt_probe_gather_launch.argtypes = [p, p, p] + [i] * 5 + [f] + [i] * 7 + [p]
     dll.fgt_probe_gather_launch.restype = i
-    dll.fgt_probe_shift_launch.argtypes = [p, p] + [i] * 7 + [ctypes.c_float, i, i, i, p]
+    dll.fgt_probe_shift_launch.argtypes = [p, p] + [i] * 5 + [f] + [i] * 6 + [p]
     dll.fgt_probe_shift_launch.restype = i
+    dll.fgt_probe_loop_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    dll.fgt_probe_loop_clusters.restype = i
     dll.fgt_probe_phi_launch.argtypes = [p, p] + [i] * 4 + [p]
     dll.fgt_probe_phi_launch.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]

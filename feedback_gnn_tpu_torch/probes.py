@@ -25,8 +25,12 @@ ke           ``take_along_loop``    64 x (ka's gather then x 1.0001)
 kf           ``roll_loop``          64 x (k3's roll then x 1.0001)
 ===========  =====================  ==========================================
 
-Three kernels of ``csrc/probes.cu`` serve them: a gather through an index
-table, a shift whose index is computed, and phi.  A wrapper given CUDA
+``csrc/probes.cu`` serves them through three entry points: a gather
+through an index table, a shift whose index is computed, and phi.  The
+gather and the shift each take a single pass (whole rows a warp at a time,
+or a thread an element along lanes) or, for the loops, a resident kernel
+that holds each column in shared memory for every iteration; the launch
+plans (``_pass_plan``, ``_loop_plan``) are chosen here.  A wrapper given CUDA
 tensors launches its kernel (or raises); given CPU tensors it takes its
 plain version, ``<wrapper>_plain``.  Each launch adds one to
 ``launches[<wrapper>]``; the plain versions do not count.  Indices are
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -68,7 +73,18 @@ PHI_OFFSET = 1e-3
 
 PHI_FORMS = ("softplus_expm1", "log_tanh", "exp_log1p")  # csrc/probes.cu's order
 MAX_THREADS = 1024
-DIRECT_THREADS = PHI_THREADS = 256
+PHI_THREADS = 256
+# csrc/probes.cu's launch constants.  The loops' cluster is a pair of
+# adjacent columns: on an H100 (132 SMs) all 64 pairs of [3840, 128] run
+# side by side, one block to an SM.  The card puts two blocks of clusters
+# of 4 or 8 on one SM, which doubles an iteration's time, and padded to
+# one block an SM they do not all fit at once (15 clusters of 8):
+# chip_smoke.py's loop plan grid.  LOOP_RPT:
+# the loop instances by rows per thread.  The single passes: blocks of
+# PASS_THREADS, at most PASS_BLOCKS_PER_SM blocks an SM.
+LOOP_CLUSTER = 2
+LOOP_RPT = (1, 2, 4, 8, 16, 32)
+PASS_THREADS, PASS_BLOCKS_PER_SM = 256, 8
 
 WRAPPERS = (
     "take_rows", "take_lanes", "take_along_lanes", "roll_rows", "circulant_copy",
@@ -118,23 +134,74 @@ def _check_iters(iters):
 # --------------------------------------------------------------- launches
 
 
-def _tile(x, axis):
-    """(rows, cols, row_stride, col_stride) with the gathered axis as rows."""
-    r, c = x.shape
-    return (r, c, c, 1) if axis == 0 else (c, r, 1, c)
+@dataclass(frozen=True)
+class LoopPlan:
+    """A loop's launch (csrc/probes.cu's resident_loop): one block per
+    column in clusters of ``cluster`` adjacent columns, the last cluster's
+    missing columns masked; ``threads`` threads, each owning the rows
+    ``t + q * threads`` for q < ``rows_per_thread``; two buffers of the
+    column's rows in shared memory (a full index table is staged in the
+    second)."""
+
+    cluster: int
+    blocks: int
+    threads: int
+    rows_per_thread: int
+    smem_bytes: int
 
 
-def _launch_shape(rows, iters, floats_per_row):
-    """(resident, threads, shared-memory bytes) of a gather or shift launch:
-    a single pass goes straight through device memory (a thread per
-    element); the loops hold one column per block in shared memory,
-    ``floats_per_row`` 4-byte words for each row."""
-    if iters == 1:
-        return 0, DIRECT_THREADS, 0
-    smem = 4 * floats_per_row * rows
+@dataclass(frozen=True)
+class PassPlan:
+    """A single pass's launch: a grid of ``grid`` blocks of PASS_THREADS.
+    Along rows a warp takes one (row, chunk) item at a time, a chunk being
+    32 lanes of 4 floats (``vec``) or of 1; along lanes a thread takes an
+    element, the grid's y striding over rows and x over columns."""
+
+    grid: tuple[int, int]
+    vec: bool
+
+
+def _up(n, k):
+    return -(-n // k) * k
+
+
+def _loop_plan(rows, cols) -> LoopPlan:
+    """Clusters of LOOP_CLUSTER columns; the fewest rows per thread (a
+    LOOP_RPT instance) that keep the block within MAX_THREADS, and a whole
+    number of warps for them."""
+    smem = 2 * 4 * rows
     if smem > SMEM_LIMIT:
         raise ValueError(f"a column of {rows} rows does not fit a block's shared memory")
-    return 1, min(MAX_THREADS, -(-rows // 32) * 32), smem
+    rpt = next(r for r in LOOP_RPT if -(-rows // r) <= MAX_THREADS)
+    return LoopPlan(LOOP_CLUSTER, _up(cols, LOOP_CLUSTER), _up(-(-rows // rpt), 32), rpt, smem)
+
+
+def _slab(rank, rows, cluster=LOOP_CLUSTER):
+    """The rows [lo, hi) that block ``rank`` of a cluster loads and stores
+    for all the cluster's columns (csrc/probes.cu's slab_begin)."""
+    return rank * rows // cluster, (rank + 1) * rows // cluster
+
+
+def _pass_plan(rows, cols, axis, sms, vec=False) -> PassPlan:
+    """Along rows (axis 0) one warp an item, as many blocks as there are
+    items for their warps, at most PASS_BLOCKS_PER_SM blocks an SM; along
+    lanes (axis 1) a thread an element of a row, up to the same cap of
+    blocks along x, one row a block along y (at most 65535, striding)."""
+    cap = PASS_BLOCKS_PER_SM * sms
+    if axis == 0:
+        items = rows * -(-cols // (32 * (4 if vec else 1)))
+        return PassPlan((max(1, min(-(-items // (PASS_THREADS // 32)), cap)), 1), vec)
+    return PassPlan((max(1, min(-(-cols // PASS_THREADS), cap)), min(rows, 65535)), False)
+
+
+def _vec(cols, *tensors):
+    """16-byte accesses along rows: whole float4s a row, aligned pointers."""
+    return cols % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _output(x):
@@ -152,43 +219,70 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")
 
 
-def _launch_gather(name, x, idx, axis, iters=1, scale=1.0):
+def _plan_args(x, iters, axis, *aligned, plan=None):
+    """(vec, rows per thread, cluster, threads, grid x, grid y, shared
+    bytes) of a gather or shift launch: a loop's LoopPlan (``plan``, else
+    _loop_plan's), or a single pass's PassPlan (rows per thread 0)."""
+    rows, cols = x.shape
+    if iters > 1:
+        lp = plan or _loop_plan(rows, cols)
+        return 0, lp.rows_per_thread, lp.cluster, lp.threads, lp.blocks, 1, lp.smem_bytes
+    vec = axis == 0 and _vec(cols, *aligned)
+    pp = _pass_plan(rows, cols, axis, _sms(x.device.index), vec)
+    return int(pp.vec), 0, 1, PASS_THREADS, *pp.grid, 0
+
+
+def loop_clusters(kind, plan: LoopPlan) -> int:
+    """How many clusters of ``plan``'s launch the card holds at once (kind
+    0: a gather with one index a row, 1: with a full table, 2: the shift)."""
+    from ._build import load_kernels
+
+    lib = load_kernels()
+    n = ctypes.c_int(0)
+    err = lib.fgt_probe_loop_clusters(kind, plan.rows_per_thread, plan.cluster, plan.threads,
+                                      plan.blocks, plan.smem_bytes, ctypes.byref(n))
+    _raise_on(lib, err, "cluster occupancy query of the loop")
+    return n.value
+
+
+def _launch_gather(name, x, idx, axis, iters=1, scale=1.0, plan=None):
     """out[r, c] = x[idx(r, c), c] along ``axis`` (idx a table of that
-    axis's length, or of x's shape), ``iters`` times, each times ``scale``."""
+    axis's length, or of x's shape), ``iters`` times, each times ``scale``;
+    the loops (iters > 1) along rows only, by ``plan`` if given (a LoopPlan,
+    to measure others than _loop_plan's)."""
     from ._build import load_kernels
 
     lib = load_kernels()
     out = _output(x)
     if x.numel() == 0:
         return out
-    rows, cols, rs, cs = _tile(x, axis)
-    resident, threads, smem = _launch_shape(rows, iters, 3)  # two buffers and the table
-    irs, ics = (rs, cs) if idx.dim() == 2 else (1, 0)
+    full = idx.dim() == 2
+    args = _plan_args(x, iters, axis, x, out, *((idx,) if full else ()), plan=plan)
     with torch.cuda.device(x.device):
         err = lib.fgt_probe_gather_launch(
-            x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols, rs, cs, irs, ics,
-            int(iters), ctypes.c_float(scale), resident, threads, smem, _stream(x.device),
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), *x.shape, axis, int(full), int(iters),
+            ctypes.c_float(scale), *args, _stream(x.device),
         )
     _raise_on(lib, err, name)
     launches[name] += 1
     return out
 
 
-def _launch_shift(name, x, shift, length, iters=1, scale=1.0):
+def _launch_shift(name, x, shift, length, iters=1, scale=1.0, plan=None):
     """out[i] = x[(i + shift) mod length] along rows for i < length, x[i]
-    past it, ``iters`` times, each times ``scale``."""
+    past it, ``iters`` times, each times ``scale``; ``plan`` as for
+    _launch_gather."""
     from ._build import load_kernels
 
     lib = load_kernels()
     out = _output(x)
     if x.numel() == 0:
         return out
-    rows, cols, rs, cs = _tile(x, 0)
-    resident, threads, smem = _launch_shape(rows, iters, 2)
+    vec, rpt, cluster, threads, blocks, _, smem = _plan_args(x, iters, 0, x, out, plan=plan)
     with torch.cuda.device(x.device):
         err = lib.fgt_probe_shift_launch(
-            x.data_ptr(), out.data_ptr(), rows, cols, rs, cs, int(shift) % length, length,
-            int(iters), ctypes.c_float(scale), resident, threads, smem, _stream(x.device),
+            x.data_ptr(), out.data_ptr(), *x.shape, int(shift) % length, length, int(iters),
+            ctypes.c_float(scale), vec, rpt, cluster, threads, blocks, smem, _stream(x.device),
         )
     _raise_on(lib, err, name)
     launches[name] += 1

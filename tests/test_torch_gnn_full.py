@@ -274,3 +274,37 @@ def test_shipped_gb48_counts_on_jax_noise(gb48, p, logical):
         nx, nz = sample(k)
         out += int(gnn_bp4_count(graph, trs, tp, tcfg, torch.tensor(np.asarray(nx)), torch.tensor(np.asarray(nz)))[1])
     assert ref == logical and out == logical
+
+
+@pytest.mark.slow
+def test_shipped_n882_decides_as_jax_on_its_run_keys():
+    """runs/gnn_bp4_n882.json's evaluation at p = 0.03 drew batch b of 2048
+    from fold_in(fold_in(PRNGKey(0), 5000 + b), 300).  On batches 0 and 1
+    the JAX package on the CPU counts 4 and 2 logical errors; the port,
+    given the noise each key draws, decides every sample as JAX does and
+    counts the same."""
+    jgraph = JQuantumGraph.from_code(jc.ghp_882_24(), stage_mode=True)
+    host = tc.QuantumGraph.from_code(tc.ghp_882_24(), stage_mode=True)
+    graph, trs = host.to("cpu"), tg.make_logit_rowsets(host, "cpu")
+    jrs = jg.make_logit_rowsets(jgraph)
+    tp, tcfg = tg.load_shipped("n882", "cpu")
+    jcfg = jg.GNNBP4Config(**tcfg._asdict())
+    jp = j_load_pytree(os.path.join(REPO, "runs", "gnn_bp4_n882_weights.npz"),
+                       jg.init_gnn_bp4(jax.random.PRNGKey(0), jcfg, jgraph))
+    p, batch = 0.03, 2048
+    step = jax.jit(lambda k: j_eval_step(jgraph, jrs, jp, jcfg, k, jnp.float32(p), batch))
+    sample = jax.jit(lambda k: j_iid(k, *j_probs(jnp.float32(p)), jgraph.n, batch))
+    decide = jax.jit(lambda sx, sz: jg.gnn_bp4_apply(jp, jgraph, jrs, sx, sz, jcfg)[:2])
+    for b, logical in [(0, 4), (1, 2)]:
+        k = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(0), 5000 + b), int(p * 1e4))
+        nx, nz = (torch.tensor(np.asarray(v)) for v in sample(k))
+        assert int(step(k)[1]) == logical
+        assert int(gnn_bp4_count(graph, trs, tp, tcfg, nx, nz)[1]) == logical
+        nx = np.pad(nx.numpy(), ((0, graph.n_pad - graph.n), (0, 0)))
+        nz = np.pad(nz.numpy(), ((0, graph.n_pad - graph.n), (0, 0)))
+        sx = tc_mod2(graph.hx, torch.from_numpy(nz).to(torch.int32))
+        sz = tc_mod2(graph.hz, torch.from_numpy(nx).to(torch.int32))
+        jx, jz = decide(jnp.asarray(sx.numpy()), jnp.asarray(sz.numpy()))
+        tx, tz, _ = tg.gnn_bp4_apply(tp, graph, trs, sx, sz, tcfg)
+        np.testing.assert_array_equal(np.asarray(jx), tx.numpy())
+        np.testing.assert_array_equal(np.asarray(jz), tz.numpy())

@@ -126,9 +126,12 @@ def test_probe_kernel_matches_plain(card, key):
     probes.compare(p, out, ref)
 
 
-# ragged shapes: rows not a multiple of a warp, an odd column count, and a
-# short, wide array (two rows, a block of one warp for each of 300000 columns)
-RAGGED = [(1000, 37), (300, 531), (2, 300000)]
+# ragged shapes: rows not a multiple of a warp, an odd column count, a
+# short, wide array (two rows, a block of one warp for each of 300000
+# columns); fewer columns than a loop's cluster of 8 (1, 3); 8 k + 1
+# columns; rows that do not divide by the loop's threads (1025 rows: 544
+# threads x 2, 3001: 768 x 4)
+RAGGED = [(1000, 37), (300, 531), (2, 300000), (1000, 1), (1000, 3), (1025, 17), (3001, 9)]
 
 
 def _ragged_inputs(card, rows, cols, seed):
@@ -160,6 +163,54 @@ def test_probe_gather_kernel_ragged(card, rows, cols):
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), (fn.__name__, args[2:])
+
+
+def _nan_gather(x, idx, axis):
+    """The plain gather with an index outside [0, n) giving NaN: the
+    kernels' rule (the plain versions refuse such an index)."""
+    n = x.shape[axis]
+    ok = (idx >= 0) & (idx < n)
+    safe = idx.clamp(0, n - 1).long()
+    if idx.dim() == 2:
+        out = torch.gather(x, axis, safe)
+        return torch.where(ok, out, torch.full_like(out, float("nan")))
+    out = torch.index_select(x, axis, safe)
+    keep = ok[:, None] if axis == 0 else ok[None, :]
+    return torch.where(keep, out, torch.full_like(out, float("nan")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(1000, 37), (3840, 128)])
+def test_probe_gather_kernel_out_of_range_index(card, rows, cols):
+    """Indices -1 and rows (past the end): NaN where the plain gather of the
+    clamped index is masked to NaN, in the single passes and through the
+    loops' iterations."""
+    x, perm, idx = _ragged_inputs(card, rows, cols, 9)
+    perm[[3, 500]] = torch.tensor([-1, rows], dtype=torch.int32, device=card)
+    idx[7, 0], idx[9, cols - 1] = -1, rows
+    xt, idxt = x.T.contiguous(), idx.T.contiguous()
+    permt = torch.randperm(cols, device=card).to(torch.int32)
+    permt[0] = cols
+    cases = [
+        (probes.take_rows, (x, perm), lambda: _nan_gather(x, perm, 0)),
+        (probes.index_rows, (x, perm), lambda: _nan_gather(x, perm, 0)),
+        (probes.take_along_rows, (x, idx), lambda: _nan_gather(x, idx, 0)),
+        (probes.take_lanes, (x, permt), lambda: _nan_gather(x, permt, 1)),
+        (probes.take_along_lanes, (xt, idxt), lambda: _nan_gather(xt, idxt, 1)),
+    ]
+    for fn, table in [(probes.gather_loop, perm), (probes.take_along_loop, idx)]:
+        def ref(table=table, iters=3):
+            acc = x
+            for _ in range(iters):
+                acc = _nan_gather(acc, table, 0) * probes.LOOP_SCALE
+            return acc
+        cases.append((fn, (x, table, 3), ref))
+    for fn, args, ref in cases:
+        out = fn(*args)
+        want = ref()
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(want).any()), fn.__name__
+        torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True, msg=fn.__name__)
 
 
 def _shift_plain(x, shift, length, iters, scale):
