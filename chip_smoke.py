@@ -38,6 +38,7 @@ import contextlib
 import copy
 import faulthandler
 import gc
+import hashlib
 import json
 import os
 import re
@@ -137,6 +138,22 @@ H100_SMEM_BYTES = 128 * 132 * 1.98e9
 # element of each phi form (transcendentals counted as one each, as for K1)
 PROBE_REPS, PROBE_PLAIN_REPS = 200, 20
 PHI_OPS = {"phi_softplus_expm1": 10, "phi_log_tanh": 6, "phi_exp_log1p": 10}
+# An accurate transcendental is tens of instructions, not one operation, so
+# the phi rows' bound also charges the SASS instructions an element of the
+# instance that runs (read from the built library in the build phase) at
+# the card's issue rate: 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz (the
+# boost clock) lane-instructions a second
+H100_ISSUE = 132 * 4 * 32 * 1.98e9
+# phi's throughput shape, neither launch-bound nor held in the 50 MB L2
+# (126 MB read, 126 MB written), timed in graphs of PHI_WIDE_REPS calls;
+# the plan grid: units a thread x threads a block
+PHI_WIDE, PHI_WIDE_REPS = (3840, 128 * 64), 20
+PHI_GRID = [(pt, threads) for pt in (1, 2, 4) for threads in (32, 64, 128, 256, 512)]
+# ragged and misaligned phi inputs (rows, cols, offset in floats into a
+# flat buffer): n = 1, 3, 5 (fewer than a float4, one float4 and a tail),
+# n % 4 = 1 and 3, a short, wide array
+PHI_RAGGED = [(1, 1, 0), (1, 3, 0), (1, 5, 0), (517, 17, 0), (2, 300001, 0), (3840, 128, 1),
+              (1000, 37, 3), (1, 4, 2)]
 # shared-memory bytes per element and iteration of the loops (csrc/probes.cu's
 # resident_loop): the element read and written.  The index does not change
 # across iterations and need be read only once (the loops hold it in
@@ -144,12 +161,14 @@ PHI_OPS = {"phi_softplus_expm1": 10, "phi_log_tanh": 6, "phi_exp_log1p": 10}
 # iteration, 12 B, is printed beside for comparison with older records.
 LOOP_SMEM_BYTES = {"gather_loop": 8, "take_along_loop": 8, "roll_loop": 8}
 LOOP_SMEM_BYTES_WITH_INDEX = {"gather_loop": 12, "take_along_loop": 12}
-# The probe kernels' times before the redesign of the gather and shift
-# kernels (single passes a thread an element, loops a block loading its
-# column alone), microseconds, by this script on an NVIDIA H100 80GB HBM3
-# at 700 W (graphs of 200): a probe slower than before shows here
-PROBE_BEFORE_US = {"k1": 3.11, "k2": 1.91, "k2b": 1.95, "k3": 3.08, "k4": 1.53, "k5": 3.25, "k6": 43.78,
-                   "ka": 3.31, "kb": 3.22, "kc": 2.64, "kd": 2.97, "ke": 45.40, "kf": 38.64}
+# The probe kernels' times before their redesign, microseconds, by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (graphs of 200): the gather
+# and shift kernels before theirs (single passes a thread an element, loops
+# a block loading its column alone), phi (k5, kc, kd) before its own (a
+# thread an element, the form a runtime argument); a probe slower than
+# before shows here
+PROBE_BEFORE_US = {"k1": 3.11, "k2": 1.91, "k2b": 1.95, "k3": 3.08, "k4": 1.53, "k5": 3.23, "k6": 43.78,
+                   "ka": 3.31, "kb": 3.22, "kc": 2.57, "kd": 2.95, "ke": 45.40, "kf": 38.64}
 
 # Training on [[882,24]] at full width (the shipped GNN's 20 message dims
 # and 40 hidden units, the published BP4-64 / GNN + BP4-16 schedule, B=100):
@@ -364,31 +383,41 @@ def ptxas_registers(report):
     return found
 
 
-def sass_counts(library):
-    """SASS instructions (NOPs left out) of each K1/K2 instance in the built
-    library (cuobjdump -sass), cut at its barrier instructions: the load,
-    the VN pass, the CN pass and the final marginals each fall between two
-    BARs.  For each segment: its instructions and MUFU (special-function)
-    instructions, and the same for every loop in it (a backward branch and
-    its target).  The smallest loop of a pass is one node visit with its
-    loop control: nvcc unrolls a node loop into a body of several visits
-    plus a remainder loop of one."""
+def sass_functions(library):
+    """[(function name, code)] of the built library (cuobjdump -sass), code
+    a list of (address, opcode, backward-branch target or None), NOPs left
+    out; None without cuobjdump in the toolkit."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("sass: no cuobjdump in this toolkit")
-        return
+        return None
     dump = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300).stdout
+    functions = []
     for section in re.split(r"\n\s*Function : ", dump)[1:]:
-        k = re.search(r"(bp[24]_qc_kernel)I((?:Li-?\d+E)+)E", section.split("\n", 1)[0])
-        if not k:
-            continue
-        code = []  # (address, opcode, backward-branch target or None)
+        code = []
         for addr, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", section):
             op = [t for t in ins.split() if not t.startswith("@")][0]
             target = re.search(r"BRA\S*\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)
             back = int(target.group(1), 16) if target and int(target.group(1), 16) < int(addr, 16) else None
             if op != "NOP":
                 code.append((int(addr, 16), op, back))
+        functions.append((section.split("\n", 1)[0].strip(), code))
+    return functions
+
+
+def sass_counts(functions):
+    """SASS instructions (NOPs left out) of each K1/K2 instance in the built
+    library (``sass_functions``), cut at its barrier instructions: the load,
+    the VN pass, the CN pass and the final marginals each fall between two
+    BARs.  For each segment: its instructions and MUFU (special-function)
+    instructions, and the same for every loop in it (a backward branch and
+    its target).  The smallest loop of a pass is one node visit with its
+    loop control: nvcc unrolls a node loop into a body of several visits
+    plus a remainder loop of one."""
+    for name, code in functions or ():
+        k = re.search(r"(bp[24]_qc_kernel)I((?:Li-?\d+E)+)E", name)
+        if not k:
+            continue
         cuts = [i for i, (_, op, _) in enumerate(code) if op.startswith("BAR")]
         parts = []
         for lo, hi in zip([0] + [c + 1 for c in cuts], cuts + [len(code)]):
@@ -401,6 +430,53 @@ def sass_counts(library):
             parts.append(f"{len(seg)}/{mufu}" + (" loops " + ",".join(f"{n}/{m}" for n, m in loops) if loops else ""))
         args = [int(x) for x in re.findall(r"Li(-?\d+)E", k.group(2))]
         print(f"  sass {k.group(1)}{args}: instructions/MUFU between barriers: " + " | ".join(parts))
+
+
+# SASS opcodes by the unit that runs them: float32 (two 16-lane datapaths a
+# scheduler), integer (one of them), MUFU (special functions), memory
+SASS_KINDS = (("MUFU", "mufu"), ("F", "fp32"), ("HF", "fp32"), ("I", "int"), ("LOP", "int"), ("SHF", "int"),
+              ("LEA", "int"), ("SEL", "int"), ("PRMT", "int"), ("LD", "memory"), ("ST", "memory"))
+# probe_phi_kernel<FORM, FAST, VEC, PT>'s mangled template arguments
+PHI_KERNEL = re.compile(r"probe_phi_kernelILi(\d+)ELb([01])ELb([01])ELi(\d+)EE")
+
+
+def phi_sass_counts(functions, registers):
+    """SASS instructions an element of every phi instance: its grid-stride
+    loop (the widest backward branch and the code it spans) over the floats
+    one trip handles (PT float4s, or PT floats).  Prints one line an
+    instance with the instructions' mix by unit (SASS_KINDS), its registers
+    and spills; returns {(form, fast, vec, pt): instructions an element},
+    empty without cuobjdump."""
+    regs = {}
+    for (kernel, _), rs in registers.items():
+        m = PHI_KERNEL.search(kernel)
+        if m:
+            regs[tuple(int(v) for v in m.groups())] = rs
+    counts = {}
+    for name, code in functions or ():
+        m = PHI_KERNEL.search(name)
+        if not m:
+            continue
+        key = tuple(int(v) for v in m.groups())
+        form, fast, vec, pt = key
+        loops = [(addr - back, back, addr) for addr, _, back in code if back is not None]
+        if not loops:
+            print(f"  sass phi {key}: no loop found")
+            continue
+        _, lo, hi = max(loops)
+        body = [op for a, op, _ in code if lo <= a <= hi]
+        floats = pt * (4 if vec else 1)
+        counts[key] = len(body) / floats
+        mix = {}
+        for op in body:
+            kind = next((k for pre, k in SASS_KINDS if op.startswith(pre)), "other")
+            mix[kind] = mix.get(kind, 0) + 1
+        r, spill = regs.get(key, (None, None))
+        print(f"  sass phi form={form} fast={fast} vec={vec} pt={pt}: {len(body)} instructions a loop trip "
+              f"of {floats} floats, {counts[key]:.2f} an element ("
+              + ", ".join(f"{k} {v / floats:.2f}" for k, v in sorted(mix.items()))
+              + f"); registers {r}, spill stores {spill} B")
+    return counts
 
 
 def plan_grid(launch_plan, nodes, max_threads):
@@ -725,23 +801,134 @@ def probe_library(p):
     return None
 
 
-def probe_bounds_ms(p, out, smem_bytes=LOOP_SMEM_BYTES):
+def probe_bounds_ms(p, out, smem_bytes=LOOP_SMEM_BYTES, issue=0.0):
     """The probe's least time on an H100, (ms, by, memory), the largest of:
     its inputs read once and its output written once over the memory rate;
     its float32 operations (one multiply per element and iteration in the
-    loops, phi's PHI_OPS) over the f32 rate; and for the loops the bytes
-    each iteration moves through shared memory (``smem_bytes`` an element)
-    over its rate.  ``memory`` names the memory whose bytes bind, None if
-    operations do."""
+    loops, phi's PHI_OPS) over the f32 rate; for the loops the bytes each
+    iteration moves through shared memory (``smem_bytes`` an element) over
+    its rate; and ``issue`` SASS instructions an element (phi's instance)
+    over the card's issue rate.  ``by`` is "bytes", "operations" or
+    "issue"; ``memory`` names the memory whose bytes bind, else None."""
     nbytes = sum(t.numel() * t.element_size() for t in p.args if torch.is_tensor(t))
     nbytes += out.numel() * out.element_size()
     ops = out.numel() * (PHI_OPS.get(p.name, 0) + (p.iters if p.iters > 1 else 0))
     t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
     t_smem = p.iters * smem_bytes.get(p.name, 0) * out.numel() / H100_SMEM_BYTES
-    t = max(t_bytes, t_ops, t_smem)
+    t_issue = out.numel() * issue / H100_ISSUE
+    t = max(t_bytes, t_ops, t_smem, t_issue)
+    if t == t_issue:
+        return 1e3 * t, "issue", None
     if t == t_ops:
         return 1e3 * t, "operations", None
     return 1e3 * t, "bytes", ("shared memory" if t == t_smem else "device memory")
+
+
+def output_hash(t):
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def phi_issue(phi_sass, p, plan, fast=False):
+    """SASS instructions an element of the phi instance ``plan`` runs for
+    probe ``p`` (0.0 where the build phase counted none)."""
+    from feedback_gnn_tpu_torch.probes import PHI_FORMS
+
+    form = PHI_FORMS.index(p.name[len("phi_"):])
+    return phi_sass.get((form, int(fast), int(plan.vec), plan.per_thread), 0.0)
+
+
+def phi_probe(p, k_ms, phi_sass, card):
+    """What a phi probe shows beyond its row: the plan and its accurate
+    instance's SASS count, the bound old and new, the fast transcendentals
+    against float64, the throughput shape's ns an element beside its issue
+    and memory bounds, a plan grid at both shapes, ragged and misaligned
+    inputs (each held to the plain version, the plan checked against the
+    launch the library made), and the accurate output's hash.  Returns the
+    row's added fields."""
+    from feedback_gnn_tpu_torch import probes
+
+    x = p.args[0]
+    form = p.name[len("phi_"):]
+    sms = probes._sms(x.device.index)
+    out = p.fn(*p.args)
+    plan = probes._phi_plan(x.numel(), sms, probes._aligned(x, out))
+    if probes.phi_last_launch() != plan:
+        raise AssertionError(f"{p.key}: the library launched {probes.phi_last_launch()}, the plan is {plan}")
+    ipe = phi_issue(phi_sass, p, plan)
+    old_ms = probe_bounds_ms(p, out)[0]
+    b_ms, b_by, _ = probe_bounds_ms(p, out, issue=ipe)
+    print(f"  {p.key} plan {plan}: {ipe:.2f} SASS instructions an element (fast "
+          f"{phi_issue(phi_sass, p, plan, True):.2f}); bound {b_ms:.5f} ms ({b_by}), the older bound "
+          f"(bytes and operations alone) {old_ms:.5f} ms; hash of the accurate output {output_hash(out)}")
+
+    f_ms = graph_ms(lambda: p.fn(*p.args, fast=True), reps=PROBE_REPS)
+    ref64 = probes.phi_reference(x)
+    fast_out = p.fn(*p.args, fast=True)
+    acc_err = float((out.double() - ref64).abs().max())
+    fast_err = float((fast_out.double() - ref64).abs().max())
+    if not bool(torch.isfinite(fast_out).all()) or fast_err >= 1.0:
+        raise AssertionError(f"{p.key}: the fast transcendentals are {fast_err:.3e} from float64 phi")
+    print(f"  {p.key} fast transcendentals: {f_ms:.5f} ms against {k_ms:.5f} ms; max abs error "
+          f"against float64 phi: accurate {acc_err:.3e}, fast {fast_err:.3e} on {card}")
+
+    g = torch.Generator(device=x.device).manual_seed(13)
+    wide = torch.randn(PHI_WIDE, generator=g, device=x.device)
+    n = wide.numel()
+    wout = p.fn(wide)
+    wplan = probes.phi_last_launch()
+    if wplan != probes._phi_plan(n, sms, probes._aligned(wide, wout)):
+        raise AssertionError(f"{p.key}: the library launched {wplan} at {list(PHI_WIDE)}")
+    err = probes.compare(p, wout, p.plain(wide))
+    w_ms = graph_ms(lambda: p.fn(wide), reps=PHI_WIDE_REPS)
+    wf_ms = graph_ms(lambda: p.fn(wide, fast=True), reps=PHI_WIDE_REPS)
+    w_ipe = phi_issue(phi_sass, p, wplan)
+    issue_ns, hbm_ns = w_ipe / H100_ISSUE * 1e9, 8 / H100_BYTES * 1e9
+    print(f"  {p.key} throughput shape {list(PHI_WIDE)} plan {wplan}: accurate {w_ms * 1e6 / n:.6f} ns an "
+          f"element ({w_ms:.5f} ms, max_abs_err {err:.3e}), fast {wf_ms * 1e6 / n:.6f} ns; bounds an element: "
+          f"issue {issue_ns:.6f} ns ({w_ipe:.2f} instructions), memory {hbm_ns:.6f} ns (8 B); "
+          f"{issue_ns / (w_ms * 1e6 / n):.3f} of the issue bound on {card}")
+
+    times = {}
+    for shape_x, reps in ((x, PROBE_REPS), (wide, PHI_WIDE_REPS)):
+        chosen = probes._phi_plan(shape_x.numel(), sms)
+        want = p.fn(shape_x)
+        for pt, threads in PHI_GRID:
+            gp = probes._phi_plan(shape_x.numel(), sms, True, pt, threads)
+            got = probes._launch_phi(p.name, shape_x, form, False, gp)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            if not same:
+                probes.compare(p, got, p.plain(shape_x))
+            times[(shape_x.numel(), gp)] = (graph_ms(lambda: probes._launch_phi(p.name, shape_x, form, False, gp),
+                                                     reps=reps), same, gp == chosen)
+            torch.cuda.empty_cache()  # each graph of the wide shape held 20 outputs of 126 MB
+    for size in (x.numel(), n):
+        rows = {gp: v for (sz, gp), v in times.items() if sz == size}
+        best = min(rows, key=lambda gp: rows[gp][0])
+        for gp, (ms, same, is_chosen) in rows.items():
+            print(f"  {p.key} grid n={size} {gp.per_thread} units a thread x {gp.threads} threads, "
+                  f"{gp.grid} blocks: {ms * 1e3:.4f} us" + ("" if same else " (other bits, within PHI_TOL)")
+                  + (" <- fastest" if gp == best else "") + (" <- chosen" if is_chosen else "") + f" on {card}")
+    del wide, wout
+
+    for rows, cols, offset in PHI_RAGGED:
+        buf = torch.randn(rows * cols + offset, generator=g, device=x.device)
+        r = buf[offset:].view(rows, cols)
+        for fast in (False, True):
+            o = p.fn(r, fast=fast)
+            if probes.phi_last_launch() != probes._phi_plan(r.numel(), sms, probes._aligned(r, o)):
+                raise AssertionError(f"{p.key} [{rows}, {cols}] +{offset}: launched {probes.phi_last_launch()}")
+            if fast:
+                if float((o.double() - probes.phi_reference(r)).abs().max()) >= 1.0:
+                    raise AssertionError(f"{p.key} fast [{rows}, {cols}] +{offset} far from float64 phi")
+            else:
+                probes.compare(p, o, p.plain(r))
+    print(f"  {p.key} ragged and misaligned inputs (rows, cols, float offset) {PHI_RAGGED}: accurate within "
+          f"PHI_TOL of the plain version, fast near float64 phi, each launched by its plan")
+    return {"old_bound_ms": old_ms, "sass_per_element": ipe, "fast_ms": f_ms,
+            "wide_ns_per_element": w_ms * 1e6 / n, "wide_fast_ns_per_element": wf_ms * 1e6 / n,
+            "wide_issue_ns_per_element": issue_ns, "hash": output_hash(out)}
 
 
 def loop_bank_probe(p, per_iter_us, card):
@@ -802,12 +989,13 @@ def loop_plan_grid(p, card):
               f"{full_ms * 1e3 - p.iters * per_us:.3f} us on {card}")
 
 
-def run_probes(device, card):
+def run_probes(device, card, phi_sass):
     """probes.main(), the entry point of the Pallas probe scripts' port, with
     the launch counts reset just before and read just after; then each probe
     against its plain version, the kernel's, the plain version's and the
-    library call's times, the bounds, and for phi the fast transcendentals.
-    Returns the probes' rows of the kernels line."""
+    library call's times, the bounds, and for phi what ``phi_probe`` shows
+    (``phi_sass``: the build phase's instructions an element of each phi
+    instance).  Returns the probes' rows of the kernels line."""
     from feedback_gnn_tpu_torch import probes
 
     reset_counts()
@@ -845,7 +1033,12 @@ def run_probes(device, card):
             if not torch.equal(lib(), ref):
                 raise AssertionError(f"{p.key}: the library call disagrees with the plain version")
             lib_ms = graph_ms(lib, reps=PROBE_REPS)
-        b_ms, b_by, b_mem = probe_bounds_ms(p, out)
+        issue = 0.0
+        if not p.exact:
+            x = p.args[0]
+            issue = phi_issue(phi_sass, p, probes._phi_plan(x.numel(), probes._sms(x.device.index),
+                                                            probes._aligned(x, out)))
+        b_ms, b_by, b_mem = probe_bounds_ms(p, out, issue=issue)
         before_us = PROBE_BEFORE_US[p.key]
         print(f"probe {p.key} {p.name} {list(p.args[0].shape)}: max_abs_err={err:.3e} "
               f"kernel {k_ms:.5f} ms (eager back to back {eager_ms:.5f} ms), plain {pl_ms:.5f} ms, "
@@ -871,13 +1064,8 @@ def run_probes(device, card):
             if p.name == "gather_loop":
                 loop_bank_probe(p, per_iter_us, card)
             loop_plan_grid(p, card)
-        if not p.exact:  # phi: the fast transcendentals, timed and held to float64
-            f_ms = graph_ms(lambda: p.fn(*p.args, fast=True), reps=PROBE_REPS)
-            ref64 = probes.phi_reference(p.args[0])
-            acc_err = float((out.double() - ref64).abs().max())
-            fast_err = float((p.fn(*p.args, fast=True).double() - ref64).abs().max())
-            print(f"  {p.key} fast transcendentals: {f_ms:.5f} ms against {k_ms:.5f} ms; max abs error "
-                  f"against float64 phi: accurate {acc_err:.3e}, fast {fast_err:.3e} on {card}")
+        if not p.exact:
+            row = phi_probe(p, k_ms, phi_sass, card)
         probe_rows.append({
             "name": p.name,
             "route": "cuda",
@@ -1957,7 +2145,9 @@ def main() -> int:
     registers = ptxas_registers(info["ptxas"])
     for (kernel, args), (regs, spill) in sorted(registers.items()):
         print(f"  registers {kernel}{list(args)}: {regs}, spill stores {spill} B")
-    sass_counts(info["library"])
+    functions = sass_functions(info["library"])
+    sass_counts(functions)
+    phi_sass = phi_sass_counts(functions, registers)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -2208,7 +2398,7 @@ def main() -> int:
 
     # 14. the probes of scripts/probe_pallas*.py
     t0 = time.perf_counter()
-    probe_rows = run_probes(device, card)
+    probe_rows = run_probes(device, card, phi_sass)
     phase("probes", t0)
 
     # 15. training: the K1 miners, the train step, the curriculum CLI

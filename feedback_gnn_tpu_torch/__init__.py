@@ -22,6 +22,26 @@ __version__ = "0.1.0"
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _init_cpu_vml():
+    """Initialise MKL's vector math on this thread before any parallel call.
+
+    On the CPU, PyTorch evaluates float32 ``exp``, ``log`` and ``tanh``
+    through MKL's VML (``vmsExp``, ``vmsLn``, ``vmsTanh``), each of its
+    OpenMP threads on its own chunk.  VML sets itself up at its first call
+    in the process; when that first call comes from several threads at
+    once, one of them now and then computes its chunk by another path
+    (errors up to ~1e-4 on exp's values in (0, 1]) on that call alone, so
+    the same input gave other bits on the first call than on later ones.
+    A one-element call runs on the calling thread alone and sets VML up
+    before any parallel call can race it."""
+    one = torch.ones(1)
+    for op in (torch.exp, torch.log, torch.tanh):
+        op(one)
+
+
+_init_cpu_vml()
+
+
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller asks for the CPU.  Raises when no card is
     found and the CPU was not asked for — there is no silent fallback.

@@ -123,8 +123,10 @@ def load_kernels() -> ctypes.CDLL:
     dll.fgt_probe_shift_launch.restype = i
     dll.fgt_probe_loop_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     dll.fgt_probe_loop_clusters.restype = i
-    dll.fgt_probe_phi_launch.argtypes = [p, p] + [i] * 4 + [p]
+    dll.fgt_probe_phi_launch.argtypes = [p, p] + [i] * 7 + [p]
     dll.fgt_probe_phi_launch.restype = i
+    dll.fgt_probe_phi_last_launch.argtypes = [ctypes.POINTER(i)]
+    dll.fgt_probe_phi_last_launch.restype = None
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

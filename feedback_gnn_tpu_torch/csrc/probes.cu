@@ -4,7 +4,7 @@
 // Replaces the thirteen Pallas TPU probes of scripts/probe_pallas.py (k1-k6)
 // and scripts/probe_pallas2.py (ka-kf); feedback_gnn_tpu_torch/probes.py
 // has one wrapper per probe, and plans every launch (_loop_plan,
-// _pass_plan).  Two C entry points and phi:
+// _pass_plan, _phi_plan).  Three C entry points:
 //
 // * fgt_probe_gather_launch: out[r, c] = src[idx(r, c), c] along the
 //   gathered axis of a row-major [rows, cols] array: rows for k1, kb, k6,
@@ -16,11 +16,11 @@
 //   src[r, c] for r >= L, the index computed and not read from a table: k3
 //   (the np.roll by 13 of [3840, 128]), k4 (s = 13, L = 127 on [128, 128]),
 //   kf.
-// * probe_phi: phi of a = |x| + 1e-3, elementwise, in the three forms the
-//   probes compare: softplus(a) - log(expm1(a)) (k5), -log(tanh(a/2)) (kc)
-//   and log1p(exp(-a)) - log(exp(a) - 1) + a (kd), with the accurate CUDA
-//   math functions; a timing-only fast mode swaps in __expf, __logf and
-//   tanh.approx.f32.
+// * fgt_probe_phi_launch: phi of a = |x| + 1e-3, elementwise, in the three
+//   forms the probes compare: softplus(a) - log(expm1(a)) (k5),
+//   -log(tanh(a/2)) (kc) and log1p(exp(-a)) - log(exp(a) - 1) + a (kd),
+//   with the accurate CUDA math functions (no fast-math flag); a
+//   timing-only fast mode swaps in __expf, __logf and tanh.approx.f32.
 //
 // gather and shift take an iteration count and a scale: each iteration
 // applies the gather or the shift to the previous result and multiplies by
@@ -78,12 +78,27 @@
 // A full table along rows (ka) reads an int4 of indices a lane and gathers
 // four scalars.  A gather along lanes ([8, 3840]: k2, k2b) stays a thread
 // per element, in memory order along each row, so that the index reads and
-// the stores are coalesced.  The phi kernel is one thread per element.
+// the stores are coalesced.
+//
+// Design of phi (probe_phi_kernel).  Where the array is small enough to
+// stay in L2, what bounds it is instruction issue, not bytes: an accurate
+// expm1f, log1pf, logf or tanhf is tens of SASS instructions, so k5 and
+// kd issue ~80-100 an element (chip_smoke.py counts them in the built
+// library), against 8 bytes an element.  So every instruction that is not
+// the math goes: the form and the mode are template parameters (one code
+// path an instance); a thread moves float4s, PT of them a step (the plan
+// takes 1; 2 and 4 exist for the plan grid), and loads the next step's
+// before this step's math, so that the loads' latency overlaps the math's
+// issue; a grid of at most the card's resident blocks strides over the
+// array (probes._phi_plan).  Pointers that are not 16-byte aligned, or
+// fewer than 4 floats, take the same kernel a float at a time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -95,6 +110,11 @@ constexpr int LOOP_THREADS = 1024;
 constexpr int LOOP_CHUNK = 8;    // source reads in flight per thread and batch
 constexpr int SLAB_BATCH = 4;    // reads in flight per thread in the cluster's load and store
 constexpr int PASS_THREADS = 256;
+// phi: blocks of at most PHI_MAX_THREADS, held to PHI_MAX_THREADS *
+// PHI_MIN_BLOCKS resident threads an SM (at most 64 registers a thread);
+// probes.PHI_RESIDENT_THREADS
+constexpr int PHI_MAX_THREADS = 512;
+constexpr int PHI_MIN_BLOCKS = 2;
 
 __device__ __forceinline__ bool in_rows(int j, int rows) {
   return static_cast<unsigned>(j) < static_cast<unsigned>(rows);
@@ -354,28 +374,81 @@ __device__ __forceinline__ float tanh_approx(float x) {
   return y;
 }
 
-// The order of operations is that of the JAX probes: softplus(a) is
-// jax.nn.softplus's max(a, 0) + log1p(exp(-|a|)).
-template <bool FAST>
-__device__ __forceinline__ float phi_form(float x, int form) {
+// phi of one element in form FORM.  The order of operations is that of the
+// JAX probes: softplus(a) is jax.nn.softplus's max(a, 0) + log1p(exp(-|a|)).
+// Each form keeps its own transcendentals (k5: expf, log1pf, expm1f, logf;
+// kc: tanhf, logf; kd: expf, log1pf, expf, logf): the three are equal in
+// exact arithmetic, and the probes exist to compare their cost.
+template <int FORM, bool FAST>
+__device__ __forceinline__ float phi_form(float x) {
   const float a = fabsf(x) + 1e-3f;
-  if (form == PHI_LOG_TANH)
+  if constexpr (FORM == PHI_LOG_TANH) {
     return -(FAST ? __logf(tanh_approx(a * 0.5f)) : logf(tanhf(a * 0.5f)));
-  const float em = FAST ? __expf(-a) : expf(-a);
-  const float lp = FAST ? __logf(1.0f + em) : log1pf(em);
-  if (form == PHI_SOFTPLUS_EXPM1) {
-    const float e1 = FAST ? __expf(a) - 1.0f : expm1f(a);
-    return (fmaxf(a, 0.0f) + lp) - (FAST ? __logf(e1) : logf(e1));
+  } else {
+    const float em = FAST ? __expf(-a) : expf(-a);
+    const float lp = FAST ? __logf(1.0f + em) : log1pf(em);
+    if constexpr (FORM == PHI_SOFTPLUS_EXPM1) {
+      const float e1 = FAST ? __expf(a) - 1.0f : expm1f(a);
+      return (fmaxf(a, 0.0f) + lp) - (FAST ? __logf(e1) : logf(e1));
+    } else {
+      const float e1 = (FAST ? __expf(a) : expf(a)) - 1.0f;
+      return (lp - (FAST ? __logf(e1) : logf(e1))) + a;
+    }
   }
-  const float e1 = (FAST ? __expf(a) : expf(a)) - 1.0f;
-  return (lp - (FAST ? __logf(e1) : logf(e1))) + a;
 }
 
-template <bool FAST>
-__global__ void probe_phi_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
-                                 int form) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n) out[k] = phi_form<FAST>(x[k], form);
+template <int FORM, bool FAST>
+__device__ __forceinline__ float phi_of(float v) {
+  return phi_form<FORM, FAST>(v);
+}
+
+template <int FORM, bool FAST>
+__device__ __forceinline__ float4 phi_of(float4 v) {
+  return make_float4(phi_form<FORM, FAST>(v.x), phi_form<FORM, FAST>(v.y), phi_form<FORM, FAST>(v.z),
+                     phi_form<FORM, FAST>(v.w));
+}
+
+// The PT units of a thread's grid-stride step at `base`, those below
+// `units`.
+template <int PT, class T>
+__device__ __forceinline__ void load_units(T (&v)[PT], const T* __restrict__ src, unsigned base,
+                                           unsigned units) {
+#pragma unroll
+  for (int j = 0; j < PT; ++j)
+    if (base + j * blockDim.x < units) v[j] = src[base + j * blockDim.x];
+}
+
+// phi elementwise over n floats.  A unit is a float4 where VEC (both
+// pointers 16-byte aligned, n >= 4) and a float otherwise.  Block b's
+// threads take, at each grid-stride step s, the PT units
+//   (s * gridDim.x + b) * blockDim.x * PT + j * blockDim.x + t,  j < PT;
+// a thread loads the next step's units before the current step's math, so
+// that their latency overlaps its issue.  With VEC the n % 4 floats past
+// the last float4 go one to each of the grid's first threads.
+template <int FORM, bool FAST, bool VEC, int PT>
+__global__ void __launch_bounds__(PHI_MAX_THREADS, PHI_MIN_BLOCKS)
+    probe_phi_kernel(const float* __restrict__ x, float* __restrict__ out, int n) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const unsigned units = VEC ? static_cast<unsigned>(n) >> 2 : static_cast<unsigned>(n);
+  const T* __restrict__ src = reinterpret_cast<const T*>(x);
+  T* __restrict__ dst = reinterpret_cast<T*>(out);
+  const unsigned stride = gridDim.x * blockDim.x * PT;  // units of the grid's step
+  unsigned base = blockIdx.x * blockDim.x * PT + threadIdx.x;
+  T v[PT];
+  load_units(v, src, base, units);
+  for (; base < units; base += stride) {
+    T next[PT];
+    load_units(next, src, base + stride, units);
+#pragma unroll
+    for (int j = 0; j < PT; ++j)
+      if (base + j * blockDim.x < units) dst[base + j * blockDim.x] = phi_of<FORM, FAST>(v[j]);
+#pragma unroll
+    for (int j = 0; j < PT; ++j) v[j] = next[j];
+  }
+  if (VEC) {
+    const unsigned t = blockIdx.x * blockDim.x + threadIdx.x, k = 4 * units + t;
+    if (k < static_cast<unsigned>(n)) out[k] = phi_form<FORM, FAST>(x[k]);
+  }
 }
 
 // --------------------------------------------------------------- launches
@@ -469,6 +542,36 @@ int rows_pass(bool vec, int grid, cudaStream_t stream, const float* src, const i
   return done();
 }
 
+using PhiKernel = void (*)(const float*, float*, int);
+
+template <int FORM, bool FAST, bool VEC>
+PhiKernel phi_kernel_for(int per_thread) {
+  switch (per_thread) {
+    case 1: return probe_phi_kernel<FORM, FAST, VEC, 1>;
+    case 2: return probe_phi_kernel<FORM, FAST, VEC, 2>;
+    case 4: return probe_phi_kernel<FORM, FAST, VEC, 4>;
+    default: return nullptr;
+  }
+}
+
+template <int FORM>
+PhiKernel phi_kernel_for(bool fast, bool vec, int per_thread) {
+  if (fast) return vec ? phi_kernel_for<FORM, true, true>(per_thread) : phi_kernel_for<FORM, true, false>(per_thread);
+  return vec ? phi_kernel_for<FORM, false, true>(per_thread) : phi_kernel_for<FORM, false, false>(per_thread);
+}
+
+// The phi instance of (form, fast, vec, units a thread) (probes.PHI_PER_THREAD).
+PhiKernel phi_kernel(int form, int fast, int vec, int per_thread) {
+  switch (form) {
+    case PHI_SOFTPLUS_EXPM1: return phi_kernel_for<PHI_SOFTPLUS_EXPM1>(fast, vec, per_thread);
+    case PHI_LOG_TANH: return phi_kernel_for<PHI_LOG_TANH>(fast, vec, per_thread);
+    case PHI_EXP_LOG1P: return phi_kernel_for<PHI_EXP_LOG1P>(fast, vec, per_thread);
+    default: return nullptr;
+  }
+}
+
+int last_phi_launch[4];  // vec, units a thread, threads, grid of the last phi launch
+
 }  // namespace
 
 // rows, cols: the array's row-major shape.  axis 0 gathers rows, axis 1
@@ -536,14 +639,32 @@ extern "C" int fgt_probe_loop_clusters(int kind, int rpt, int cluster, int threa
               nullptr, clusters);
 }
 
-extern "C" int fgt_probe_phi_launch(const float* x, float* out, int n, int form, int fast,
-                                    int threads, void* stream) {
-  const int grid = (n + threads - 1) / threads;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    probe_phi_kernel<true><<<grid, threads, 0, s>>>(x, out, n, form);
-  } else {
-    probe_phi_kernel<false><<<grid, threads, 0, s>>>(x, out, n, form);
+// phi of the n floats at x into out, in form `form` (0: softplus - log
+// expm1, 1: -log tanh, 2: exp/log1p), fast or accurate, by the plan of
+// probes._phi_plan: float4 units if `vec` (refused unless both pointers are
+// 16-byte aligned and n >= 4), `per_thread` units a thread and step,
+// `threads` a block (a whole number of warps, at most PHI_MAX_THREADS),
+// `grid` blocks.
+extern "C" int fgt_probe_phi_launch(const float* x, float* out, int n, int form, int fast, int vec,
+                                    int per_thread, int threads, int grid, void* stream) {
+  const PhiKernel kernel = phi_kernel(form, fast, vec, per_thread);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if (!kernel || n < 0 || threads < 32 || threads > PHI_MAX_THREADS || threads % 32 != 0 || grid < 1 ||
+      (vec && (!aligned || n < 4)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  const int err = done();
+  if (err == 0) {
+    last_phi_launch[0] = vec;
+    last_phi_launch[1] = per_thread;
+    last_phi_launch[2] = threads;
+    last_phi_launch[3] = grid;
   }
-  return static_cast<int>(cudaGetLastError());
+  return err;
+}
+
+// The shape of the last phi launch that succeeded (vec, units a thread,
+// threads, grid), into shape[0..3].
+extern "C" void fgt_probe_phi_last_launch(int* shape) {
+  for (int k = 0; k < 4; ++k) shape[k] = last_phi_launch[k];
 }

@@ -29,8 +29,10 @@ kf           ``roll_loop``          64 x (k3's roll then x 1.0001)
 through an index table, a shift whose index is computed, and phi.  The
 gather and the shift each take a single pass (whole rows a warp at a time,
 or a thread an element along lanes) or, for the loops, a resident kernel
-that holds each column in shared memory for every iteration; the launch
-plans (``_pass_plan``, ``_loop_plan``) are chosen here.  A wrapper given CUDA
+that holds each column in shared memory for every iteration; phi takes
+a grid-stride pass over float4s, one instance for each form and mode.  The
+launch plans (``_pass_plan``, ``_loop_plan``, ``_phi_plan``) are chosen
+here.  A wrapper given CUDA
 tensors launches its kernel (or raises); given CPU tensors it takes its
 plain version, ``<wrapper>_plain``.  Each launch adds one to
 ``launches[<wrapper>]``; the plain versions do not count.  Indices are
@@ -62,7 +64,7 @@ __all__ = [
     "take_rows", "take_lanes", "take_along_lanes", "roll_rows", "circulant_copy",
     "phi_softplus_expm1", "gather_loop", "take_along_rows", "index_rows", "phi_log_tanh",
     "phi_exp_log1p", "take_along_loop", "roll_loop", "Probe", "probe_inputs", "probe_cases",
-    "main", "launches",
+    "main", "launches", "phi_last_launch",
 ]
 
 # the scripts' shapes and constants
@@ -73,7 +75,6 @@ PHI_OFFSET = 1e-3
 
 PHI_FORMS = ("softplus_expm1", "log_tanh", "exp_log1p")  # csrc/probes.cu's order
 MAX_THREADS = 1024
-PHI_THREADS = 256
 # csrc/probes.cu's launch constants.  The loops' cluster is a pair of
 # adjacent columns: on an H100 (132 SMs) all 64 pairs of [3840, 128] run
 # side by side, one block to an SM.  The card puts two blocks of clusters
@@ -85,6 +86,18 @@ PHI_THREADS = 256
 LOOP_CLUSTER = 2
 LOOP_RPT = (1, 2, 4, 8, 16, 32)
 PASS_THREADS, PASS_BLOCKS_PER_SM = 256, 8
+# phi: the instances by units (float4s, or floats) a thread and step; at
+# most PHI_MAX_THREADS threads a block; every instance keeps
+# PHI_RESIDENT_THREADS threads an SM resident (__launch_bounds__(512, 2):
+# at most 64 registers a thread), which caps the grid.  The plan's rules
+# are the winners of chip_smoke.py's plan grid on an H100 (1, 2 or 4
+# units a thread x 32 to 512 threads, at [3840, 128] and [3840, 8192]):
+# one unit a thread (the next step's, loaded ahead, is the second in
+# flight), blocks of PHI_THREADS_FEW while the units leave resident threads
+# idle, of PHI_THREADS_MANY once the grid strides.
+PHI_PER_THREAD = (1, 2, 4)
+PHI_THREADS_FEW, PHI_THREADS_MANY = 128, 512
+PHI_MAX_THREADS, PHI_RESIDENT_THREADS = 512, 1024
 
 WRAPPERS = (
     "take_rows", "take_lanes", "take_along_lanes", "roll_rows", "circulant_copy",
@@ -161,6 +174,20 @@ class PassPlan:
     vec: bool
 
 
+@dataclass(frozen=True)
+class PhiPlan:
+    """phi's launch: ``grid`` blocks of ``threads``; at each grid-stride
+    step a thread takes ``per_thread`` units, float4s where ``vec`` (both
+    pointers 16-byte aligned, n >= 4) and floats otherwise, and with
+    ``vec`` the n % 4 floats past the last float4 go one to each of the
+    grid's first threads."""
+
+    vec: bool
+    per_thread: int
+    threads: int
+    grid: int
+
+
 def _up(n, k):
     return -(-n // k) * k
 
@@ -194,9 +221,28 @@ def _pass_plan(rows, cols, axis, sms, vec=False) -> PassPlan:
     return PassPlan((max(1, min(-(-cols // PASS_THREADS), cap)), min(rows, 65535)), False)
 
 
+def _phi_plan(n, sms, aligned=True, per_thread=1, threads=None) -> PhiPlan:
+    """float4 units where the pointers are ``aligned`` and n >= 4; one a
+    thread and step; blocks of PHI_THREADS_FEW threads while the units are
+    fewer than the threads ``sms`` SMs hold at once (PHI_RESIDENT_THREADS
+    each), else of PHI_THREADS_MANY; as many blocks as the units need, at
+    most the resident ones.  ``per_thread`` and ``threads`` given: that
+    shape (chip_smoke.py's plan grid)."""
+    vec = aligned and n >= 4
+    units = n // 4 if vec else n
+    if threads is None:
+        threads = PHI_THREADS_FEW if units < sms * PHI_RESIDENT_THREADS else PHI_THREADS_MANY
+    resident = sms * PHI_RESIDENT_THREADS // threads
+    return PhiPlan(vec, per_thread, threads, max(1, min(-(-units // (threads * per_thread)), resident)))
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _vec(cols, *tensors):
     """16-byte accesses along rows: whole float4s a row, aligned pointers."""
-    return cols % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    return cols % 4 == 0 and _aligned(*tensors)
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,20 +335,32 @@ def _launch_shift(name, x, shift, length, iters=1, scale=1.0, plan=None):
     return out
 
 
-def _launch_phi(name, x, form, fast):
+def _launch_phi(name, x, form, fast, plan=None):
+    """phi of x in ``form``, by ``plan`` if given (a PhiPlan, to measure
+    others than _phi_plan's), else _phi_plan's."""
     from ._build import load_kernels
 
     lib = load_kernels()
     out = _output(x)
     if x.numel() == 0:
         return out
+    plan = plan or _phi_plan(x.numel(), _sms(x.device.index), _aligned(x, out))
     with torch.cuda.device(x.device):
-        err = lib.fgt_probe_phi_launch(x.data_ptr(), out.data_ptr(), x.numel(),
-                                       PHI_FORMS.index(form), int(fast), PHI_THREADS,
+        err = lib.fgt_probe_phi_launch(x.data_ptr(), out.data_ptr(), x.numel(), PHI_FORMS.index(form),
+                                       int(fast), int(plan.vec), plan.per_thread, plan.threads, plan.grid,
                                        _stream(x.device))
     _raise_on(lib, err, name)
     launches[name] += 1
     return out
+
+
+def phi_last_launch() -> PhiPlan:
+    """The shape of the last phi launch the kernel library made."""
+    from ._build import load_kernels
+
+    shape = (ctypes.c_int * 4)()
+    load_kernels().fgt_probe_phi_last_launch(shape)
+    return PhiPlan(bool(shape[0]), *shape[1:])
 
 
 # ------------------------------------------------------ gathers and shifts

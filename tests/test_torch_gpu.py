@@ -262,6 +262,72 @@ def test_probe_phi_fast_mode(card, fn):
     assert float((out.double() - probes.phi_reference(x)).abs().max()) < 1.0
 
 
+
+PHI_FNS = [probes.phi_softplus_expm1, probes.phi_log_tanh, probes.phi_exp_log1p]
+# (rows, cols, offset in floats into a flat buffer): fewer floats than a
+# float4, one float4 and a tail, n % 4 = 1 and 3, a short, wide array; and
+# contiguous views 4, 8 and 12 bytes into their buffer (not 16-byte
+# aligned: a float at a time)
+PHI_RAGGED = [(1, 1, 0), (1, 3, 0), (1, 4, 0), (1, 5, 0), (517, 17, 0), (2, 300001, 0), (3840, 128, 1),
+              (3840, 128, 2), (1000, 37, 3), (1, 4, 1)]
+
+
+def _phi_input(card, rows, cols, offset, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(rows * cols + offset, generator=g, device=card)[offset:].view(rows, cols)
+
+
+def _check_phi(fn, x, plan):
+    """fn's accurate kernel launched ``plan`` and is within PHI_TOL of the
+    plain version; the fast one stays near float64 phi."""
+    out = fn(x)
+    assert probes.phi_last_launch() == plan
+    ref = getattr(probes, fn.__name__ + "_plain")(x)
+    fast = fn(x, fast=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **probes.PHI_TOL)
+    assert bool(torch.isfinite(fast).all())
+    assert float((fast.double() - probes.phi_reference(x)).abs().max()) < 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", PHI_FNS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("rows,cols,offset", PHI_RAGGED)
+def test_probe_phi_kernel_ragged_and_misaligned(card, fn, rows, cols, offset):
+    x = _phi_input(card, rows, cols, offset, rows + cols + offset)
+    aligned = x.data_ptr() % 16 == 0
+    assert aligned == (offset == 0)
+    _check_phi(fn, x, probes._phi_plan(x.numel(), probes._sms(x.device.index), aligned))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", PHI_FNS, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("rows,cols", [(3840, 128), (3840, 8192)])
+def test_probe_phi_kernel_runs_its_plan(card, fn, rows, cols):
+    """The probe and the throughput shape launch _phi_plan's shape; every
+    other shape of the card's plan grid, and a one-block grid, agree too."""
+    x = _phi_input(card, rows, cols, 0, 5)
+    sms = probes._sms(x.device.index)
+    _check_phi(fn, x, probes._phi_plan(x.numel(), sms))
+    form = fn.__name__[len("phi_"):]
+    ref = getattr(probes, fn.__name__ + "_plain")(x)
+    for pt in probes.PHI_PER_THREAD:
+        for threads in (32, 128, 512):
+            for plan in (probes._phi_plan(x.numel(), sms, True, pt, threads),
+                         probes.PhiPlan(True, pt, threads, 1)):
+                out = probes._launch_phi(fn.__name__, x, form, False, plan)
+                assert probes.phi_last_launch() == plan
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, ref, **probes.PHI_TOL)
+
+
+@pytest.mark.gpu
+def test_probe_phi_kernel_refuses_a_misaligned_float4_plan(card):
+    x = _phi_input(card, 4, 4, 1, 3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        probes._launch_phi("phi_log_tanh", x, "log_tanh", False, probes.PhiPlan(True, 1, 256, 1))
+
+
 # The redesigned K1/K2: bit for bit against their plain versions on the
 # specialised instances ((6, 3): the GHP codes; (8, 4): GB-48) and on the
 # generic one (reached through the launch plan's instance override), in

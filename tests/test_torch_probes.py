@@ -20,6 +20,8 @@ in tests/test_torch_gpu.py.
 
 import importlib.util
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -102,6 +104,66 @@ def test_plain_matches_pallas_probe(recorded, kernel):
         np.testing.assert_allclose(out, ref, **PHI_TOL)
     else:
         np.testing.assert_array_equal(out, ref)
+
+
+# The plain phi forms and cn_update's softplus and phi, each the first
+# transcendental call of a fresh process, called again on fresh copies of
+# the scripts' input: every call must give the first call's bits, within
+# PHI_TOL of JAX.  The first parallel call of PyTorch's CPU exp, log or
+# tanh used to race MKL's one-time set-up and, in about one process in
+# five, gave one thread's chunk other values (up to 1e-4 off) on that call
+# alone; the package now sets MKL up at import (feedback_gnn_tpu_torch's
+# _init_cpu_vml).  A process shows the race only on its first call, so each
+# case runs DETERMINISM_PROCESSES of them, one after another: side by side
+# they keep the cores busy, and the race rarely shows under load.
+DETERMINISM_PROCESSES, DETERMINISM_CALLS = 2, 4
+DETERMINISM_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from feedback_gnn_tpu_torch import probes
+from feedback_gnn_tpu_torch.decoders import cn_update
+fns = {
+    "k5": probes.phi_softplus_expm1_plain,
+    "kc": probes.phi_log_tanh_plain,
+    "kd": probes.phi_exp_log1p_plain,
+    "softplus": cn_update.softplus,
+    "phi": lambda t: cn_update.phi(t.abs() * 4.0, "expm1"),
+}
+x = np.load(sys.argv[1])
+fn = fns[sys.argv[2]]
+np.save(sys.argv[4], np.stack([fn(torch.from_numpy(np.array(x))).numpy() for _ in range(int(sys.argv[3]))]))
+"""
+
+
+def _jax_reference(recorded, case):
+    from feedback_gnn_tpu.decoders import cn_update as jcn
+
+    if case in PHI:
+        return recorded[case][1]
+    x = jax.numpy.asarray(recorded["k5"][0][0])
+    if case == "softplus":
+        return np.asarray(jax.nn.softplus(x))
+    return np.asarray(jcn.phi(jax.numpy.abs(x) * 4.0, "expm1"))
+
+
+@pytest.mark.parametrize("case", ["k5", "kc", "kd", "softplus", "phi"])
+def test_cpu_phi_is_deterministic_in_fresh_processes(recorded, case, tmp_path):
+    """Fault C4: the same bits on every call of a fresh process."""
+    x_path = tmp_path / "x.npy"
+    np.save(x_path, recorded["k5"][0][0])
+    ref = _jax_reference(recorded, case)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+    for k in range(DETERMINISM_PROCESSES):
+        out_path = tmp_path / f"out{k}.npy"
+        subprocess.run([sys.executable, "-c", DETERMINISM_SCRIPT, str(x_path), case, str(DETERMINISM_CALLS),
+                        str(out_path)], check=True, env=env, timeout=120)
+        outs = np.load(out_path)
+        assert outs.shape == (DETERMINISM_CALLS, *ref.shape)
+        for i, out in enumerate(outs):
+            moved = int((out != outs[0]).sum())
+            assert moved == 0, f"process {k}: call {i} moved {moved} elements from the first call's bits"
+        np.testing.assert_allclose(outs[0], ref, **PHI_TOL)
 
 
 def test_probe_inputs_are_the_scripts(recorded):
@@ -518,3 +580,137 @@ def test_loops_reject_no_iterations(fn, args):
     inp = dict(probes.probe_inputs("cpu"), x=probes.probe_inputs("cpu")["x_sub"])
     with pytest.raises(ValueError, match="iteration count"):
         fn(*(inp[a] for a in args), iters=0)
+
+
+# ------------------------------------------------- phi's launch, emulated
+#
+# csrc/probes.cu's probe_phi_kernel in the layout of _phi_plan: block b's
+# thread t takes, at grid-stride step s, the units (s * grid + b) *
+# threads * per_thread + j * threads + t for j < per_thread (float4s where
+# the plan says vec, else floats), and with vec the n % 4 floats past the
+# last float4 go one to each of the grid's first threads.  Every float of
+# [0, n) must be read and written exactly once, and none past n.
+
+PHI_NS = [0, 1, 3, 4, 5, 127, 128, 491519, 491520, 491523]
+
+
+class PhiLayout:
+    """The kernel's element-to-thread layout; a mutation overrides one
+    method."""
+
+    def step(self, plan):  # units between a thread's grid-stride steps
+        return plan.grid * plan.threads * plan.per_thread
+
+    def tail(self, n, units, plan):  # floats past the last float4
+        t = np.arange(plan.grid * plan.threads)
+        k = 4 * units + t
+        return k[k < n]
+
+
+def _emulate_phi(n, plan, layout=None):
+    """The float indices each thread of ``plan``'s launch reads and writes,
+    in one array (a float4 unit as its four floats)."""
+    layout = layout or PhiLayout()
+    w = 4 if plan.vec else 1
+    units = n // w
+    span = plan.threads * plan.per_thread
+    base0 = (np.arange(plan.grid)[:, None] * span + np.arange(plan.threads)[None, :]).ravel()
+    steps = -(-units // layout.step(plan)) if units else 0
+    base = (base0[None, :] + layout.step(plan) * np.arange(steps)[:, None]).ravel()
+    base = base[base < units]
+    u = (base[:, None] + plan.threads * np.arange(plan.per_thread)[None, :]).ravel()
+    u = u[u < units]
+    floats = (w * u[:, None] + np.arange(w)[None, :]).ravel()
+    if plan.vec:
+        floats = np.concatenate([floats, layout.tail(n, units, plan)])
+    return floats
+
+
+def _covered_once(n, floats):
+    return bool(((floats >= 0) & (floats < n)).all()) and bool((np.bincount(floats, minlength=n) == 1).all())
+
+
+@pytest.mark.parametrize("n", PHI_NS)
+@pytest.mark.parametrize("sms", [132, 2])
+def test_phi_plan(n, sms):
+    """float4 units only on aligned pointers and from 4 floats on; one a
+    thread; at most the resident blocks; whole warps, the fewer while the
+    units leave resident threads idle."""
+    for aligned in (True, False):
+        plan = probes._phi_plan(n, sms, aligned)
+        assert plan.vec == (aligned and n >= 4)
+        units = n // 4 if plan.vec else n
+        few = units < sms * probes.PHI_RESIDENT_THREADS
+        assert plan.threads == (probes.PHI_THREADS_FEW if few else probes.PHI_THREADS_MANY)
+        assert plan.threads % 32 == 0 and plan.threads <= probes.PHI_MAX_THREADS
+        assert plan.per_thread == 1 and plan.per_thread in probes.PHI_PER_THREAD
+        resident = sms * probes.PHI_RESIDENT_THREADS // plan.threads
+        assert 1 <= plan.grid <= resident
+        assert plan.grid == max(1, min(-(-units // plan.threads), resident))
+
+
+def test_phi_plan_at_the_probe_and_throughput_shapes():
+    """[3840, 128]: 122,880 float4s, fewer than the 135,168 threads of 132
+    SMs, so one a thread in 960 blocks of 128; [3840, 8192]: the 264
+    resident blocks of 512 stride over 7,864,320 float4s."""
+    assert probes._phi_plan(3840 * 128, 132) == probes.PhiPlan(True, 1, 128, 960)
+    assert probes._phi_plan(3840 * 8192, 132) == probes.PhiPlan(True, 1, 512, 264)
+    assert probes._phi_plan(3840 * 128, 132, False) == probes.PhiPlan(False, 1, 512, 264)
+    assert probes._phi_plan(3840 * 128, 132, True, 4, 256) == probes.PhiPlan(True, 4, 256, 120)
+
+
+@pytest.mark.parametrize("n", PHI_NS)
+@pytest.mark.parametrize("sms", [132, 2])
+def test_emulated_phi_covers_every_element_once(n, sms):
+    for aligned in (True, False):
+        plan = probes._phi_plan(n, sms, aligned)
+        assert _covered_once(n, _emulate_phi(n, plan))
+    # other plans of the card's grid, and one block
+    for pt in probes.PHI_PER_THREAD:
+        for threads in (32, 128, 512):
+            plan = probes._phi_plan(n, sms, True, pt, threads)
+            assert _covered_once(n, _emulate_phi(n, plan))
+            assert _covered_once(n, _emulate_phi(n, probes.PhiPlan(plan.vec, pt, threads, 1)))
+
+
+@pytest.mark.parametrize("rows,cols", [(3840, 128), (1, 5), (517, 17)])
+def test_emulated_phi_on_a_misaligned_view(rows, cols):
+    """A contiguous [rows, cols] view 4 bytes into a flat buffer: not 16-byte
+    aligned, so a float a unit, every float once; the values are the plain
+    version's."""
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(rows * cols + 1).astype(np.float32))[1:]
+    x = x.view(rows, cols)
+    assert x.is_contiguous() and not probes._aligned(x)
+    plan = probes._phi_plan(x.numel(), 132, probes._aligned(x, torch.empty_like(x)))
+    assert not plan.vec
+    floats = _emulate_phi(x.numel(), plan)
+    assert _covered_once(x.numel(), floats)
+    out = np.full(x.numel(), np.nan, np.float32)
+    out[floats] = probes.phi_softplus_expm1_plain(x).numpy().ravel()[floats]
+    np.testing.assert_array_equal(out.reshape(rows, cols), probes.phi_softplus_expm1(x).numpy())
+
+
+class _PhiNoTail(PhiLayout):
+    def tail(self, n, units, plan):
+        return np.zeros(0, np.int64)
+
+
+class _PhiStrideOffByOne(PhiLayout):  # one float4 short of the grid's span
+    def step(self, plan):
+        return plan.grid * plan.threads * plan.per_thread - 1
+
+
+class _PhiBlockStride(PhiLayout):  # each block strides by its own span: the grid's steps overlap
+    def step(self, plan):
+        return plan.threads * plan.per_thread
+
+
+@pytest.mark.parametrize("layout", [_PhiNoTail, _PhiStrideOffByOne, _PhiBlockStride],
+                         ids=["no_tail", "stride_off_by_one", "overlapping_strides"])
+def test_emulated_phi_fails_on_a_mutated_layout(layout):
+    """n = 491,523 on 2 SMs: several grid-stride steps and a tail of 3."""
+    n = 491523
+    plan = probes._phi_plan(n, 2)
+    assert plan.vec and plan.grid > 1 and n // 4 > plan.grid * plan.threads * plan.per_thread
+    assert _covered_once(n, _emulate_phi(n, plan))
+    assert not _covered_once(n, _emulate_phi(n, plan, layout()))

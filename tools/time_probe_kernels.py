@@ -1,4 +1,4 @@
-"""Time the probe gather and shift kernels on the card, one JSON line.
+"""Time the probe kernels on the card, one JSON line.
 
     python tools/time_probe_kernels.py TAG
 
@@ -11,11 +11,17 @@ the loops at 64 and at 2 iterations (their time an iteration, and the rest
 of the call), k6 on the identity permutation, and the launch floor
 (take_rows on [1, 1]).  Where the checkout's loops take a launch plan with
 a cluster, also the loop kernel with no iteration (its load and store
-alone), and on one row (its launch and cluster barriers alone).  Prints
-"TIMES TAG {...}" in microseconds.
+alone), and on one row (its launch and cluster barriers alone).  The three
+phi forms (k5, kc, kd), accurate and fast, at the probe shape [3840, 128]
+and at a throughput shape [3840, 8192] (PHI_WIDE, neither launch-bound nor
+held in L2), the accurate output held to its plain version within PHI_TOL
+and hashed, so that two checkouts show whether they give the same bits.
+Prints "TIMES TAG {...}" in microseconds (the keys ending in /ps in
+picoseconds an element), then "HASHES TAG {...}".
 """
 
 import ctypes
+import hashlib
 import json
 import os
 import sys
@@ -27,6 +33,7 @@ import chip_smoke  # noqa: E402
 from feedback_gnn_tpu_torch import probes  # noqa: E402
 
 REPS = 200
+PHI_WIDE, WIDE_REPS = (3840, 128 * 64), 20
 
 
 def us(fn):
@@ -82,7 +89,21 @@ def main(tag):
         res["loop0_one_row"] = us(loop_alone(row, perm[:1].contiguous(),
                                              probes.LoopPlan(plan.cluster, plan.blocks, plan.threads,
                                                              plan.rows_per_thread, plan.smem_bytes)))
+    hashes = {}
+    wide = torch.randn(PHI_WIDE, generator=torch.Generator(device="cuda").manual_seed(13), device="cuda")
+    for key in ["k5", "kc", "kd"]:
+        p = cases[key]
+        for shape, x, reps in (("", p.args[0], REPS), ("@wide", wide, WIDE_REPS)):
+            out = p.fn(x)
+            probes.compare(p, out, p.plain(x))
+            hashes[key + shape] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+            res[key + shape] = chip_smoke.graph_ms(lambda: p.fn(x), reps) * 1e3
+            res[key + shape + "/fast"] = chip_smoke.graph_ms(lambda: p.fn(x, fast=True), reps) * 1e3
+            torch.cuda.empty_cache()
+        res[key + "@wide/ps"] = res[key + "@wide"] * 1e6 / wide.numel()  # picoseconds an element
+        res[key + "@wide/fast/ps"] = res[key + "@wide/fast"] * 1e6 / wide.numel()
     print("TIMES", tag, json.dumps({k: round(v, 4) for k, v in res.items()}), flush=True)
+    print("HASHES", tag, json.dumps(hashes), flush=True)
 
 
 if __name__ == "__main__":
