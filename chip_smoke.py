@@ -22,7 +22,11 @@ resumed from its artifacts; checkpoint round trips); the fully-learned
 GNN_BP4 decoder at full width (the shipped trained weights' LERs against
 the JAX package's runs, card against CPU forward and one train step, the
 train step's rate, cli/train_gnn_bp4.py end to end) and the example CLIs
-(cli/qldpc_codes.py; cli/n1270.py --qc-kernel, K1).  Each decoding path
+(cli/qldpc_codes.py; cli/n1270.py --qc-kernel, K1); K1's bfloat16 message
+carry (each instance at the bench's, the main path's and the rescue's
+shapes bit for bit against its plain version and timed beside float32's;
+the bench workload and the main path with the carry), and the host GF(2)
+core that builds the codes (against the NumPy path).  Each decoding path
 is checked against a published error rate, each probe against its plain
 version, with every kernel's launch count set to 0 just before a path and
 read just after.  Prints each phase's seconds, the card's name and power limit, one
@@ -41,6 +45,7 @@ import gc
 import hashlib
 import json
 import os
+import platform
 import re
 import shutil
 import statistics
@@ -75,6 +80,8 @@ EVALUATE = dict(p=0.08, batch=20480, rounds=3, compact=0.40, prepass=12, rounds_
 RESCUE = dict(p=0.10, batch=20480, compact=0.25, seed=11)
 # The cascade on the gather backend, held as the main path is
 GATHER = dict(p=0.12, batch=4096, seed=12)
+# the host GF(2) core's phase: a seeded random matrix beside the codes'
+NATIVE = dict(seed=0, random=(2000, 4000), matmul_batch=4096)
 # BP + OSD-0 (cli/osd_eval.py) against RESULTS.md: BP2 at p=0.05 to 100
 # errors, BP4 at p=0.10 for a fixed 6 batches (its gather BP4 takes ~1.5 s
 # a batch); OSD sub-batches sized from the flagged rates that bp2_path and
@@ -113,6 +120,16 @@ PREVIOUS_K1_MS = {
     ("n1270", 3072, 64): 22.1389, ("n1270", 1024, 16): 2.0402,
 }
 PREVIOUS_K2_MS = 28.9668
+# float32 K1's output hashes (output_hash of the three marginals stacked) at
+# k1_timing's shapes on random_inputs(seed=2), taken with the kernel as it
+# was before the bfloat16 carry (tools/k1_fingerprint.py on the parent
+# checkout; torch 2.11.0+cu128): the float32 instances must give the same bits
+K1_F32_HASHES = {
+    ("n882", 256, 64, None): "75b49c1ac1479f53", ("n882", 256, 16, None): "8e4ed12c343703fb",
+    ("n1270", 20480, 12, None): "ca497b12f1f61c96", ("n1270", 3072, 64, None): "adb8c23e592a8088",
+    ("n1270", 1024, 16, None): "de16f6d3c803c65c", ("n882", 512, 64, "tf"): "4d55991aec28c26d",
+    ("n882", 512, 16, "accurate"): "2cf1613fb6ea3de2",
+}
 PREVIOUS_COUNTS = {"main path": (300, 4096), "bp2_path": (3143, 61440), "bp4_plain_path": (2139, 61440)}
 GRID_REPS = 10  # calls per plan of the launch-plan grid, in one CUDA graph
 # Work of one decode, for the bound: float32 operations per edge and
@@ -127,6 +144,9 @@ CN_OPS_PER_EDGE = {
     ("boxplus", None): 14,
     ("minsum", None): 15,
 }
+# the bfloat16 message carry: the CN pass's rounding of each output (to
+# bfloat16 and back), added per edge and iteration to the float32 carry's
+CARRY_OPS_PER_EDGE = {"float32": 0, "bfloat16": 2}
 K2_VN_OPS_PER_EDGE = 2  # add to the total, subtract for the extrinsic
 H100_F32_OPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3, H100 SXM data sheet
@@ -269,7 +289,7 @@ def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def k1_bound_ms(qc, batch, iters, cn_type="boxplus-phi", phi_impl=None):
+def k1_bound_ms(qc, batch, iters, cn_type="boxplus-phi", phi_impl=None, msg_dtype="float32"):
     """Least time of one decode on an H100: the larger of its bytes (LLRs
     and syndromes read once, marginals written once) over the memory rate
     and its f32 operations over the f32 rate."""
@@ -277,7 +297,8 @@ def k1_bound_ms(qc, batch, iters, cn_type="boxplus-phi", phi_impl=None):
     m = (qc.qx.mb + qc.qz.mb) * l
     edges = (qc.qx.num_groups + qc.qz.num_groups) * l
     nbytes = 4 * batch * (3 * n + m) + 4 * batch * 3 * n
-    per_iter = edges * (VN_OPS_PER_EDGE + CN_OPS_PER_EDGE[(cn_type, phi_impl)]) + n * VN_OPS_PER_NODE + m
+    cn_ops = CN_OPS_PER_EDGE[(cn_type, phi_impl)] + CARRY_OPS_PER_EDGE[msg_dtype]
+    per_iter = edges * (VN_OPS_PER_EDGE + cn_ops) + n * VN_OPS_PER_NODE + m
     ops = batch * (iters * per_iter + edges + 4 * n)
     t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -568,6 +589,57 @@ def check_against_plain(label, out, ref):
     return err
 
 
+def same_k1_hash(label, key, out):
+    """Print whether float32 K1's output at a k1_timing shape hashes as the
+    kernel's before the bfloat16 carry (K1_F32_HASHES) did."""
+    h = output_hash(torch.stack(out))
+    before = K1_F32_HASHES.get(key)
+    print(f"  K1 {label} output hash {h}"
+          + (f": before the carry {before}, {'the same' if h == before else 'DIFFERENT'}" if before else ""))
+
+
+def time_carry(codes, shapes, registers, device, card):
+    """K1 with the bfloat16 message carry at each (code, batch, iterations,
+    phi form, instance or None for the launch plan's): bit for bit against
+    its plain version, timed beside the float32 carry on the same inputs
+    and plan (CUDA events over 10 calls, and a CUDA graph of GRID_REPS),
+    the plain version, the bound, the instance's occupancy, and the share
+    of marginals the carry moves.  Returns {shape: row}."""
+    from feedback_gnn_tpu_torch.decoders import bp4_qc
+
+    rows = {}
+    for nm, batch, iters, phi, instance in shapes:
+        qc_s = codes[nm][1]
+        llr, sx, sz = random_inputs(qc_s, batch, device, seed=2)
+        plan = bp4_qc._launch_plan(qc_s, batch, instance=instance)
+        label = f"{nm} B={batch} iters={iters}" + (f" phi={phi}" if phi else "") + f" instance {plan.instance}"
+
+        def launch(msg_dtype, plan=plan, qc_s=qc_s, llr=llr, sx=sx, sz=sz, iters=iters, phi=phi):
+            return bp4_qc._launch_kernel(qc_s, llr, sx, sz, iters, "boxplus-phi", 1.0, phi, plan, msg_dtype)
+
+        out = launch("bfloat16")
+        ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi, msg_dtype="bfloat16")
+        err = check_against_plain(f"bfloat16 carry {label}", out, ref)
+        f32 = launch("float32")
+        moved = float(torch.cat([(a != b).flatten() for a, b in zip(out, f32)]).float().mean())
+        del out, ref, f32
+        k_ms, f_ms = time_ms(lambda: launch("bfloat16"), reps=10), time_ms(lambda: launch("float32"), reps=10)
+        g_ms, gf_ms = graph_ms(lambda: launch("bfloat16"), GRID_REPS), graph_ms(lambda: launch("float32"), GRID_REPS)
+        p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi,
+                                                             msg_dtype="bfloat16"), reps=2)
+        b_ms, b_by = k1_bound_ms(qc_s, batch, iters, phi_impl=phi, msg_dtype="bfloat16")
+        blocks, regs, spill = bp4_qc._occupancy(qc_s, "boxplus-phi", phi, plan, "bfloat16")
+        key = ("bp4_qc_kernel", bp4_qc._kernel_codes("boxplus-phi", phi, plan.instance, "bfloat16"))
+        print(f"K1 bfloat16 carry {label}: kernel {k_ms:.4f} ms (graph {g_ms:.4f}), float32 carry "
+              f"{f_ms:.4f} ms (graph {gf_ms:.4f}), ratio {k_ms / f_ms:.4f} (graphs {g_ms / gf_ms:.4f}); "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); resident blocks per SM {blocks} (planned "
+              f"{plan.blocks_per_sm}), registers {regs} (ptxas {registers.get(key)}), local {spill} B; "
+              f"{moved:.4f} of the marginals differ from the float32 carry's on {card}", flush=True)
+        rows[(nm, batch, iters, phi, instance)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                       bound_by=b_by, graph_ms=g_ms, f32_ms=f_ms)
+    return rows
+
+
 def compare_kernel(codes, device):
     """K1 against its plain version on the card, every CN rule and phi form."""
     from feedback_gnn_tpu_torch.decoders.bp4_qc import bp4_qc_marginals, bp4_qc_marginals_plain
@@ -670,6 +742,136 @@ def run_main_path(device):
         flagged += int(f)
         logical += int(lg)
     return fn, gen, flagged, logical, LER_STEPS * 256
+
+
+def cpu_model():
+    """The host CPU's model, for host-clock numbers: /proc/cpuinfo's model
+    name, else lscpu's, else the machine's architecture."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith(("model name", "hardware")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    for line in out.splitlines():
+        if line.startswith(("Model name:", "Vendor ID:")):
+            return line.split(":", 1)[1].strip()
+    return f"{platform.machine()} CPU, model not reported"
+
+
+def run_native(card, N=NATIVE):
+    """The host GF(2) core (feedback_gnn_tpu_torch/native): its g++ build
+    into an empty directory, then row_echelon_native against the NumPy path
+    (reduced and not) on the paper codes' hx.T and hz.T and a seeded random
+    matrix, and gf2_matmul_native against NumPy; each held bit for bit,
+    both paths timed on the host's clock."""
+    from feedback_gnn_tpu_torch import native
+    from feedback_gnn_tpu_torch.codes import ghp_1270_28, ghp_882_24, gf2
+
+    host = cpu_model()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        native.build(d)
+        build_s = time.perf_counter() - t0
+    print(f"native: g++ {' '.join(native.CXX_FLAGS)} built the core in {build_s:.3f} s on the host "
+          f"({host}; {os.cpu_count()} cores; {platform.machine()}), beside {card}")
+    rng = np.random.default_rng(N["seed"])
+    mats = {}
+    for name, make in (("n882", ghp_882_24), ("n1270", ghp_1270_28)):
+        code = make()
+        mats[f"{name} hx.T"] = np.asarray(code.hx).T
+        mats[f"{name} hz.T"] = np.asarray(code.hz).T
+    mats["random {}x{} (seed {})".format(*N["random"], N["seed"])] = rng.integers(0, 2, N["random"])
+    rows = []
+    for label, mat in mats.items():
+        for reduced in (False, True):
+            t0 = time.perf_counter()
+            core = native.row_echelon_native(mat, reduced)
+            core_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = gf2.row_echelon(mat, reduced, use_native=False)
+            numpy_s = time.perf_counter() - t0
+            same = (core[1] == ref[1] and list(core[3]) == list(ref[3]) and np.array_equal(core[0], ref[0])
+                    and np.array_equal(core[2], ref[2]))
+            print(f"native row_echelon {label} {list(mat.shape)} reduced={reduced}: rank {core[1]}, core "
+                  f"{core_s:.4f} s, NumPy {numpy_s:.4f} s ({numpy_s / core_s:.1f}x), "
+                  f"{'equal' if same else 'DIFFERENT'} (host clock, {host})", flush=True)
+            if not same:
+                raise AssertionError(f"row_echelon_native disagrees with the NumPy path: {label}")
+            rows.append((label, reduced, core_s, numpy_s))
+    h = mats["n882 hx.T"].T
+    v = rng.integers(0, 2, (h.shape[1], N["matmul_batch"]))
+    t0 = time.perf_counter()
+    out = native.gf2_matmul_native(h, v)
+    core_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = (h.astype(np.float32) @ v.astype(np.float32) % 2).astype(int)  # exact: sums < 2**24
+    numpy_s = time.perf_counter() - t0
+    print(f"native gf2_matmul n882 hx {list(h.shape)} @ [{h.shape[1]}, {N['matmul_batch']}]: core "
+          f"{core_s:.4f} s, NumPy (float32 matmul) {numpy_s:.4f} s, {'equal' if np.array_equal(out, ref) else 'DIFFERENT'} "
+          f"(host clock, {host})")
+    if not np.array_equal(out, ref):
+        raise AssertionError("gf2_matmul_native disagrees with NumPy")
+    return rows
+
+
+def run_carry(codes, fp32_rates, device, card, env=None):
+    """The bfloat16 message carry end to end: bench.py's workload through
+    cli/bench.py with BENCH_MSG_DTYPE=bfloat16 (syndromes/s beside
+    ``fp32_rates``, the float32 run's windows; overflow 0), and the main
+    path's cascade (entry()'s configuration) with the carry at p=0.12, its
+    LER beside the TF original's (printed only: the JAX package calls the
+    carry an accuracy trade and publishes no rate for it).  Launch counts
+    reset just before each and read just after.  Returns the main path's K1
+    launches."""
+    from feedback_gnn_tpu_torch.cli import bench
+    from feedback_gnn_tpu_torch.cli.bench import timed_windows
+    from feedback_gnn_tpu_torch.decoders import CascadeConfig, sandwich_eval_step
+
+    settings = bench.bench_settings({"BENCH_MSG_DTYPE": "bfloat16", **(env or {})})
+    graph, qc, params = codes["n1270"]
+    step = bench.make_step(graph, qc, params, settings)
+    gen = torch.Generator(device=device).manual_seed(0)
+    step(gen, settings.p)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    rates, step_ms, counts = timed_windows(step, (gen, settings.p), settings.batch)
+    launched = read_counts()
+    overflow = sum(int(c[2]) for c in counts)
+    report_rate(f"bench bfloat16 carry [[1270,28]] nG=5 p={settings.p} B={settings.batch}", rates, step_ms, card)
+    ratio = statistics.median(rates) / statistics.median(fp32_rates)
+    print(f"bench bfloat16 carry: {len(counts)} steps, flagged={sum(int(c[0]) for c in counts)} "
+          f"logical={sum(int(c[1]) for c in counts)} overflow={overflow} launches={launched}; "
+          f"{statistics.median(rates):.1f} against float32's {statistics.median(fp32_rates):.1f} "
+          f"syndromes/s in this run ({ratio:.4f}x) on {card}")
+    if overflow != 0:
+        raise AssertionError(f"compaction overflow {overflow} with the bfloat16 carry")
+    if launched != expected_counts(K1=len(counts) * (2 + settings.cfg.num_rounds)):
+        raise AssertionError(f"kernel launches {launched} in {len(counts)} bfloat16 bench steps")
+
+    graph, qc, params = codes["n882"]
+    cfg = CascadeConfig(num_iter1=64, num_iter2=16, num_rounds=3, p0=0.05, qc_msg_dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(7)
+    reset_counts()
+    flagged = logical = 0
+    for _ in range(LER_STEPS):
+        f, lg = sandwich_eval_step(graph, [params], cfg, gen, LER_P, 256, qc=qc)
+        flagged += int(f)
+        logical += int(lg)
+    launched = read_counts()
+    samples = LER_STEPS * 256
+    rate, sig = sigmas(logical, samples, LER_REF)
+    print(f"main path bfloat16 carry [[882,24]] nG=3 p={LER_P}: flagged={flagged} logical={logical}/{samples} "
+          f"LER={rate:.5f}, {sig:.2f} sigma from the TF original's {LER_REF} (printed only) "
+          f"launches={launched}")
+    if launched != expected_counts(K1=LER_STEPS * (1 + 3)):
+        raise AssertionError(f"kernel launches {launched} on the main path with the carry")
+    return launched["K1"]
 
 
 def sigmas(count, samples, ref):
@@ -786,7 +988,7 @@ def profile_sim_ler(label, step, p, batch, steps, device, card):
 def probe_library(p):
     """The one PyTorch call that computes the probe's function, as a thunk
     on its inputs (index tables widened to int64 beforehand), or None."""
-    from feedback_gnn_tpu_torch.probes import ROLL_SHIFT
+    from feedback_gnn_tpu_torch.probes import CIRC_LEN, ROLL_SHIFT
 
     a = p.args
     if p.name in ("take_rows", "index_rows"):
@@ -798,6 +1000,10 @@ def probe_library(p):
         return lambda: torch.gather(a[0], dim, idx)
     if p.name == "roll_rows":
         return lambda: torch.roll(a[0], ROLL_SHIFT, 0)
+    if p.name == "circulant_copy":  # one gather through a precomputed row index
+        rows = torch.arange(a[0].shape[0], device=a[0].device)
+        idx = torch.where(rows < CIRC_LEN, (rows + ROLL_SHIFT) % CIRC_LEN, rows)
+        return lambda: torch.index_select(a[0], 0, idx)
     return None
 
 
@@ -1267,7 +1473,8 @@ def plain_k1():
 
     def plain(qc, llr, sx, sz, num_iter, cn_type="boxplus-phi", factor=1.0, msg_dtype="float32",
               phi_impl=None):
-        return bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, num_iter, cn_type, factor, phi_impl)
+        return bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, num_iter, cn_type, factor, phi_impl,
+                                             msg_dtype)
 
     bp4_qc.bp4_qc_marginals = plain
     try:
@@ -2164,6 +2371,11 @@ def main() -> int:
     k2_specs = {"n882": spec882, "n1270": codes["n1270"][1].qx}
     phase("codes", t0)
 
+    # the host GF(2) core that builds the codes
+    t0 = time.perf_counter()
+    run_native(card)
+    phase("native", t0)
+
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     max_err = compare_kernel(codes, device)
@@ -2218,6 +2430,11 @@ def main() -> int:
     if launches_b != expected_counts(K1=len(counts) * (2 + cfg.num_rounds)):
         raise AssertionError(f"kernel launches {launches_b} in {len(counts)} bench steps")
     phase("bench", t0)
+
+    # 5b. the same workload and the main path with the bfloat16 message carry
+    t0 = time.perf_counter()
+    bf16_launches = run_carry(codes, rates, device, card)
+    phase("bf16_carry", t0)
 
     # 6.-8. the evaluate CLI to 100 logical errors, the rescue stage, the
     # evaluate step on the gather backend
@@ -2276,6 +2493,7 @@ def main() -> int:
         k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc_s, llr, sx, sz, iters, phi_impl=phi), reps=10)
         ref = bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi)
         max_err = max(max_err, check_against_plain(label, out, ref))
+        same_k1_hash(label, (nm, batch, iters, phi), out)
         del out
 
         def launch(p):
@@ -2297,6 +2515,12 @@ def main() -> int:
         print(f"K1 {label}: kernel {k_ms:.4f} ms ("
               + (f"previous design {old:.4f} ms, ratio {k_ms / old:.3f}; " if old else "")
               + f"in a CUDA graph {g_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
+    bf16_rows = time_carry(codes, [
+        ("n882", 256, 64, None, None), ("n1270", settings.batch, 12, None, None),
+        ("n1270", cap1, 64, None, None), ("n1270", cap2, 16, None, None),
+        ("n882", rescue_cap, 64, "tf", None), ("n882", rescue_cap, 16, "accurate", None),
+        ("n882", 256, 64, None, (0, 0)),
+    ], registers, device, card)
     phase("k1_timing", t0)
 
     # 10. the binary BSC path: bp2_bsc_eval_step on [[882,24]]'s hx, on K2
@@ -2457,6 +2681,17 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "library_ms": None,
+        },
+        {
+            "name": "bp4_qc_marginals (msg_dtype=bfloat16)",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/bp4_qc.cu",
+            "replaces": "feedback_gnn_tpu/decoders/bp4_qc.py:329",
+            "launches": bf16_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in bf16_rows.values()),
+            **{k: bf16_rows[("n882", 256, 64, None, None)][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
         },
         {

@@ -109,9 +109,9 @@ def load_kernels() -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     f = ctypes.c_float
-    dll.fgt_bp4_qc_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [f, i, i, i, p]
+    dll.fgt_bp4_qc_launch.argtypes = [p, p, p, p, p] + [i] * 11 + [f, i, i, i, p]
     dll.fgt_bp4_qc_launch.restype = i
-    dll.fgt_bp4_qc_occupancy.argtypes = [i] * 6 + [p]
+    dll.fgt_bp4_qc_occupancy.argtypes = [i] * 7 + [p]
     dll.fgt_bp4_qc_occupancy.restype = i
     dll.fgt_bp2_qc_launch.argtypes = [p, p, p, p] + [i] * 8 + [f, i, i, i, p]
     dll.fgt_bp2_qc_launch.restype = i

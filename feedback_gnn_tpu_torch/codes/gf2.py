@@ -1,10 +1,10 @@
-"""GF(2) linear algebra on the host (NumPy).
+"""GF(2) linear algebra on the host.
 
-A copy of the NumPy path of ``feedback_gnn_tpu/codes/gf2.py``: vectorised
-Gaussian elimination, one masked XOR over all rows per pivot.  The JAX
-package hands large matrices to a bit-packed C++ core with the same pivot
-choices; the port keeps only the NumPy path (``use_native`` is accepted and
-ignored), which builds the [[1270,28]] code in well under a second.
+The port of ``feedback_gnn_tpu/codes/gf2.py``: vectorised NumPy Gaussian
+elimination, one masked XOR over all rows per pivot, and, for matrices of
+64 x 64 entries or more, the bit-packed C++ core of ``native/`` (built with
+g++ at first use; the same pivot choices and outputs, about 64x fewer word
+operations), which ``use_native=False`` turns off.
 
 These run once at code-construction time; nothing here touches a device.
 """
@@ -15,15 +15,22 @@ import numpy as np
 
 __all__ = ["row_echelon", "rank", "kernel", "row_basis", "compute_code_distance", "inverse", "int2bin"]
 
+NATIVE_MIN_ENTRIES = 64 * 64  # the JAX package's threshold for the C++ core
+
 
 def row_echelon(mat: np.ndarray, reduced: bool = False, use_native: bool = True):
     """Gaussian elimination over GF(2); rank-deficient safe, no column swaps.
 
     Returns ``[row_ech_form, rank, transform, pivot_cols]`` with
-    ``transform @ mat % 2 == row_ech_form``.  ``use_native`` is ignored.
+    ``transform @ mat % 2 == row_ech_form``.  Matrices of at least
+    NATIVE_MIN_ENTRIES entries go to the C++ core unless ``use_native`` is
+    False; it raises RuntimeError where it cannot be built.
     """
-    del use_native
     m, n = mat.shape
+    if use_native and m * n >= NATIVE_MIN_ENTRIES:
+        from .. import native
+
+        return native.row_echelon_native(mat, reduced)
     mat = mat.astype(bool).copy()
     transform = np.eye(m, dtype=bool)
     pivot_row = 0

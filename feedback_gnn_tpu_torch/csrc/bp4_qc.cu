@@ -51,7 +51,15 @@
 //
 // Instances (K1_INSTANCES below): the five CN-rule/phi cases for the degree
 // pairs (6, 3) (the GHP codes) and (8, 4) (GB-48), and for (0, 0), the
-// generic instance with runtime degrees up to MAX_DEG.  The constants, phi,
+// generic instance with runtime degrees up to MAX_DEG; each with the
+// float32 message carry and with the bfloat16 one.
+//
+// The bfloat16 carry (MSG_BF16) is the JAX kernel's msg_dtype=bfloat16:
+// the CN pass rounds each output to bfloat16 (nearest even) before it
+// writes it into its float32 slot, and nothing else is rounded: the VN
+// pass's extrinsics, the marginals and all arithmetic stay float32.  The
+// slots, the shared-memory layout and the launch plan are the float32
+// carry's.  The constants, phi,
 // the CN update and the slot-table rows are shared with the binary kernel
 // (bp2_qc.cu) through qc_common.cuh.  Built with plain nvcc into a shared
 // library with a C interface and loaded with ctypes
@@ -97,7 +105,7 @@ __device__ __forceinline__ float vn_side(const float* msg, const Row<W>& row, in
   return sum;
 }
 
-template <int CN, int PHI, int DC, int DV>
+template <int CN, int PHI, int DC, int DV, int MSG>
 __global__ void __launch_bounds__(1024, 1)
     bp4_qc_kernel(const float* __restrict__ llr, const float* __restrict__ synx,
                   const float* __restrict__ synz, float* __restrict__ out,
@@ -158,7 +166,7 @@ __global__ void __launch_bounds__(1024, 1)
     // CN pass over both sides (Hx CNs, then Hz CNs)
     for (int c = t; c < m; c += threads) {
       const Row<RC> row(ctab + c * RC);
-      cn_node<CN, PHI, DC>(msg, row, syn[c] ? -1.0f : 1.0f, factor);
+      cn_node<CN, PHI, DC, MSG>(msg, row, syn[c] ? -1.0f : 1.0f, factor);
     }
     sample_sync(s, threads);
   }
@@ -180,32 +188,48 @@ using K1Fn = void (*)(const float*, const float*, const float*, float*, const ui
                       float, int, int);
 
 struct K1Instance {
-  int cn, phi, dc, dv;
+  int cn, phi, dc, dv, msg;
   K1Fn fn;
 };
 
-// Every instance the launcher dispatches to: (CN rule, phi form, DC, DV).
+// Every instance the launcher dispatches to: (CN rule, phi form, DC, DV,
+// message carry); the bfloat16 carry has an instance for every float32 one.
 const K1Instance K1_INSTANCES[] = {
-    {CN_PHI, PHI_TANH, 6, 3, bp4_qc_kernel<CN_PHI, PHI_TANH, 6, 3>},
-    {CN_PHI, PHI_TF, 6, 3, bp4_qc_kernel<CN_PHI, PHI_TF, 6, 3>},
-    {CN_PHI, PHI_ACCURATE, 6, 3, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 6, 3>},
-    {CN_TANH, PHI_TANH, 6, 3, bp4_qc_kernel<CN_TANH, PHI_TANH, 6, 3>},
-    {CN_MINSUM, PHI_TANH, 6, 3, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 6, 3>},
-    {CN_PHI, PHI_TANH, 8, 4, bp4_qc_kernel<CN_PHI, PHI_TANH, 8, 4>},
-    {CN_PHI, PHI_TF, 8, 4, bp4_qc_kernel<CN_PHI, PHI_TF, 8, 4>},
-    {CN_PHI, PHI_ACCURATE, 8, 4, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 8, 4>},
-    {CN_TANH, PHI_TANH, 8, 4, bp4_qc_kernel<CN_TANH, PHI_TANH, 8, 4>},
-    {CN_MINSUM, PHI_TANH, 8, 4, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 8, 4>},
-    {CN_PHI, PHI_TANH, 0, 0, bp4_qc_kernel<CN_PHI, PHI_TANH, 0, 0>},
-    {CN_PHI, PHI_TF, 0, 0, bp4_qc_kernel<CN_PHI, PHI_TF, 0, 0>},
-    {CN_PHI, PHI_ACCURATE, 0, 0, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 0, 0>},
-    {CN_TANH, PHI_TANH, 0, 0, bp4_qc_kernel<CN_TANH, PHI_TANH, 0, 0>},
-    {CN_MINSUM, PHI_TANH, 0, 0, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 0, 0>},
+    {CN_PHI, PHI_TANH, 6, 3, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TANH, 6, 3, MSG_F32>},
+    {CN_PHI, PHI_TF, 6, 3, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TF, 6, 3, MSG_F32>},
+    {CN_PHI, PHI_ACCURATE, 6, 3, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 6, 3, MSG_F32>},
+    {CN_TANH, PHI_TANH, 6, 3, MSG_F32, bp4_qc_kernel<CN_TANH, PHI_TANH, 6, 3, MSG_F32>},
+    {CN_MINSUM, PHI_TANH, 6, 3, MSG_F32, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 6, 3, MSG_F32>},
+    {CN_PHI, PHI_TANH, 8, 4, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TANH, 8, 4, MSG_F32>},
+    {CN_PHI, PHI_TF, 8, 4, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TF, 8, 4, MSG_F32>},
+    {CN_PHI, PHI_ACCURATE, 8, 4, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 8, 4, MSG_F32>},
+    {CN_TANH, PHI_TANH, 8, 4, MSG_F32, bp4_qc_kernel<CN_TANH, PHI_TANH, 8, 4, MSG_F32>},
+    {CN_MINSUM, PHI_TANH, 8, 4, MSG_F32, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 8, 4, MSG_F32>},
+    {CN_PHI, PHI_TANH, 0, 0, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TANH, 0, 0, MSG_F32>},
+    {CN_PHI, PHI_TF, 0, 0, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_TF, 0, 0, MSG_F32>},
+    {CN_PHI, PHI_ACCURATE, 0, 0, MSG_F32, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 0, 0, MSG_F32>},
+    {CN_TANH, PHI_TANH, 0, 0, MSG_F32, bp4_qc_kernel<CN_TANH, PHI_TANH, 0, 0, MSG_F32>},
+    {CN_MINSUM, PHI_TANH, 0, 0, MSG_F32, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 0, 0, MSG_F32>},
+    {CN_PHI, PHI_TANH, 6, 3, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TANH, 6, 3, MSG_BF16>},
+    {CN_PHI, PHI_TF, 6, 3, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TF, 6, 3, MSG_BF16>},
+    {CN_PHI, PHI_ACCURATE, 6, 3, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 6, 3, MSG_BF16>},
+    {CN_TANH, PHI_TANH, 6, 3, MSG_BF16, bp4_qc_kernel<CN_TANH, PHI_TANH, 6, 3, MSG_BF16>},
+    {CN_MINSUM, PHI_TANH, 6, 3, MSG_BF16, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 6, 3, MSG_BF16>},
+    {CN_PHI, PHI_TANH, 8, 4, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TANH, 8, 4, MSG_BF16>},
+    {CN_PHI, PHI_TF, 8, 4, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TF, 8, 4, MSG_BF16>},
+    {CN_PHI, PHI_ACCURATE, 8, 4, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 8, 4, MSG_BF16>},
+    {CN_TANH, PHI_TANH, 8, 4, MSG_BF16, bp4_qc_kernel<CN_TANH, PHI_TANH, 8, 4, MSG_BF16>},
+    {CN_MINSUM, PHI_TANH, 8, 4, MSG_BF16, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 8, 4, MSG_BF16>},
+    {CN_PHI, PHI_TANH, 0, 0, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TANH, 0, 0, MSG_BF16>},
+    {CN_PHI, PHI_TF, 0, 0, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_TF, 0, 0, MSG_BF16>},
+    {CN_PHI, PHI_ACCURATE, 0, 0, MSG_BF16, bp4_qc_kernel<CN_PHI, PHI_ACCURATE, 0, 0, MSG_BF16>},
+    {CN_TANH, PHI_TANH, 0, 0, MSG_BF16, bp4_qc_kernel<CN_TANH, PHI_TANH, 0, 0, MSG_BF16>},
+    {CN_MINSUM, PHI_TANH, 0, 0, MSG_BF16, bp4_qc_kernel<CN_MINSUM, PHI_TANH, 0, 0, MSG_BF16>},
 };
 
-K1Fn k1_instance(int cn, int phi, int dc, int dv) {
+K1Fn k1_instance(int cn, int phi, int dc, int dv, int msg) {
   for (const K1Instance& k : K1_INSTANCES)
-    if (k.cn == cn && k.phi == phi && k.dc == dc && k.dv == dv) return k.fn;
+    if (k.cn == cn && k.phi == phi && k.dc == dc && k.dv == dv && k.msg == msg) return k.fn;
   return nullptr;
 }
 
@@ -221,9 +245,9 @@ K1Fn k1_instance(int cn, int phi, int dc, int dv) {
 extern "C" int fgt_bp4_qc_launch(const float* llr, const float* synx, const float* synz,
                                  float* out, const uint16_t* tab, int batch, int n, int mx, int mz,
                                  int msgs, int num_iter, int cn_type, int phi_impl, int dc, int dv,
-                                 float factor, int threads, int samples_per_block, int smem_bytes,
-                                 void* stream) {
-  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv);
+                                 int msg_dtype, float factor, int threads, int samples_per_block,
+                                 int smem_bytes, void* stream) {
+  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv, msg_dtype);
   if (fn == nullptr) return -1;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -239,14 +263,14 @@ extern "C" int fgt_bp4_qc_launch(const float* llr, const float* synx, const floa
 // of one instance at block_threads threads and smem_bytes of dynamic shared
 // memory, into out[0..2].  Returns a CUDA error code (0 = ok), -1 for an
 // instance that does not exist.
-extern "C" int fgt_bp4_qc_occupancy(int cn_type, int phi_impl, int dc, int dv, int block_threads,
-                                    int smem_bytes, int* out) {
-  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv);
+extern "C" int fgt_bp4_qc_occupancy(int cn_type, int phi_impl, int dc, int dv, int msg_dtype,
+                                    int block_threads, int smem_bytes, int* out) {
+  const K1Fn fn = k1_instance(cn_type, phi_impl, dc, dv, msg_dtype);
   if (fn == nullptr) return -1;
   return occupancy_of(fn, block_threads, smem_bytes, out);
 }
 
 extern "C" const char* fgt_cuda_error_string(int code) {
-  if (code == -1) return "no kernel instance for this CN rule, phi form and degree pair";
+  if (code == -1) return "no kernel instance for this CN rule, phi form, degree pair and message carry";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -5,7 +5,9 @@
 // shared memory.
 //
 // Everything a decode does not change is a template argument: the CN rule,
-// the phi form and the degree pair (DC, DV).  A degree of 0 is the generic
+// the phi form, the degree pair (DC, DV) and, for K1, the message carry
+// (MSG_F32, or MSG_BF16: each CN output rounded to bfloat16, nearest even,
+// where it is stored).  A degree of 0 is the generic
 // instance: node degrees up to MAX_DEG, read from the slot table, where an
 // unused entry holds NO_SLOT.
 //
@@ -17,6 +19,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,6 +37,7 @@ constexpr unsigned NO_SLOT = 0xFFFFu;  // an unused entry of a slot-table row
 
 enum { CN_PHI = 0, CN_TANH = 1, CN_MINSUM = 2 };
 enum { PHI_TANH = 0, PHI_TF = 1, PHI_ACCURATE = 2 };
+enum { MSG_F32 = 0, MSG_BF16 = 1 };
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -106,10 +110,23 @@ __device__ __forceinline__ float phif(float x) {
 
 __device__ __forceinline__ float sign_no_zero(float x) { return x < 0.0f ? -1.0f : 1.0f; }
 
+// A CN output as the message carry stores it in its float32 slot: as is,
+// or rounded to bfloat16 (nearest even, as torch's and XLA's casts) and
+// widened back exactly.
+template <int MSG>
+__device__ __forceinline__ float carry(float x) {
+  if constexpr (MSG == MSG_BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
 // One CN: read the slots of its table row, apply the CN rule with the
-// syndrome sign syn (+-1), write the scaled extrinsics back in place.
+// syndrome sign syn (+-1), write the scaled extrinsics back in place, each
+// through the message carry MSG.
 // DC > 0: every CN has degree DC; DC == 0: the row's degree, up to MAX_DEG.
-template <int CN, int PHI, int DC, int W>
+template <int CN, int PHI, int DC, int MSG = MSG_F32, int W>
 __device__ __forceinline__ void cn_node(float* msg, const Row<W>& row, float syn, float factor) {
   constexpr int K = DC ? DC : MAX_DEG;
   const int deg = DC ? DC : row.degree(0, MAX_DEG);
@@ -133,7 +150,7 @@ __device__ __forceinline__ void cn_node(float* msg, const Row<W>& row, float syn
     sprod = sprod * syn;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k < deg) msg[row[k]] = sgn[k] * sprod * phif<PHI>(psum - p[k]) * factor;
+      if (k < deg) msg[row[k]] = carry<MSG>(sgn[k] * sprod * phif<PHI>(psum - p[k]) * factor);
     }
   } else if constexpr (CN == CN_TANH) {
     float t[K];
@@ -154,7 +171,7 @@ __device__ __forceinline__ void cn_node(float* msg, const Row<W>& row, float syn
         float o = tprod / t[k];
         if (fabsf(o) < 1e-7f) o = 0.0f;
         o = clipf(o, -ATANH_CLIP, ATANH_CLIP);
-        msg[row[k]] = 2.0f * atanhf(o) * factor;
+        msg[row[k]] = carry<MSG>(2.0f * atanhf(o) * factor);
       }
     }
   } else {  // CN_MINSUM
@@ -185,7 +202,7 @@ __device__ __forceinline__ void cn_node(float* msg, const Row<W>& row, float syn
     const float min_e = nmin >= 2 ? min1 : min2;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k < deg) msg[row[k]] = sgn[k] * sprod * (a[k] == min1 ? min_e : min1) * factor;
+      if (k < deg) msg[row[k]] = carry<MSG>(sgn[k] * sprod * (a[k] == min1 ? min_e : min1) * factor);
     }
   }
 }

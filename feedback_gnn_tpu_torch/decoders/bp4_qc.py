@@ -21,6 +21,12 @@ Numerics are those of the JAX kernel:
   tanh saturated at cn_update.TANH_SAT), or
   minsum with duplicate-min detection; the result is scaled by ``factor``;
 * softplus without threshold, sign(0) = +1.
+
+``msg_dtype="bfloat16"`` is the JAX kernel's bfloat16 message carry: each
+CN output is rounded to bfloat16 (round to nearest even) where it is
+stored, and nothing else is.  The VN extrinsics, the marginals and all
+arithmetic stay float32; the messages keep their float32 slots (holding
+bfloat16 values).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from .cn_update import (
 __all__ = ["bp4_qc_marginals", "bp4_qc_marginals_plain", "bp4_decode_qc", "qc_supported", "launches"]
 
 CN_TYPES = ("boxplus-phi", "boxplus", "minsum")
+# message carry -> the kernel's code (0: float32; 1: each CN output rounded to bfloat16)
+MSG_DTYPES = ("float32", "bfloat16")
 # phi_impl -> the kernel's formulation code (0: tanh form, 1: tf, 2: accurate)
 PHI_CODES = {None: 0, "expm1": 0, "tf": 1, "accurate": 2}
 MAX_DEG = 8  # largest node degree of the generic instance (csrc/qc_common.cuh)
@@ -181,6 +189,17 @@ def _cn_plain(msg, syn_pm, side: _SideIndex, cn_type, factor, phi_impl):
     return out
 
 
+def _carry(msg, msg_dtype):
+    """CN outputs as the message carry stores them: rounded to bfloat16
+    (nearest even) and widened back, or unchanged for float32."""
+    return msg.to(torch.bfloat16).to(torch.float32) if msg_dtype == "bfloat16" else msg
+
+
+def _check_msg_dtype(msg_dtype):
+    if msg_dtype not in MSG_DTYPES:
+        raise ValueError(f"unsupported msg_dtype {msg_dtype!r}: one of {MSG_DTYPES}")
+
+
 @functools.lru_cache(maxsize=8)
 def _side_index(spec: QCGraphSpec, device: torch.device):
     return _SideIndex(spec, device)
@@ -188,10 +207,11 @@ def _side_index(spec: QCGraphSpec, device: torch.device):
 
 def bp4_qc_marginals_plain(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter: int,
                            cn_type: str = "boxplus-phi", normalization_factor: float = 1.0,
-                           phi_impl: str | None = None):
+                           phi_impl: str | None = None, msg_dtype: str = "float32"):
     """The plain PyTorch version of the kernel, on whatever device the
     tensors lie: index gathers over [G, l, B] planes.  Same contract as
     ``bp4_qc_marginals``."""
+    _check_msg_dtype(msg_dtype)
     sx_idx, sz_idx = _side_index(qc.qx, llr_ch.device), _side_index(qc.qz, llr_ch.device)
     l, nb = qc.l, qc.qx.nb
     b = llr_ch.shape[-1]
@@ -216,6 +236,7 @@ def bp4_qc_marginals_plain(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter:
         nvz = softplus(-llrz)[jz] - _lse_neg(llrx[jz] - vz, llry[jz] - vz)
         mx = _cn_plain(_roll(nvx, sx_idx.to_cn), syn_x, sx_idx, cn_type, factor, phi_impl)
         mz = _cn_plain(_roll(nvz, sz_idx.to_cn), syn_z, sz_idx, cn_type, factor, phi_impl)
+        mx, mz = _carry(mx, msg_dtype), _carry(mz, msg_dtype)  # the carry's only rounding
 
     llrx, llry, llrz = marginals(_roll(mx, sx_idx.to_vn), _roll(mz, sz_idx.to_vn))
     n = qc.n
@@ -399,21 +420,21 @@ def _kernel_table(qc: QCPair, instance: tuple, device: torch.device):
     return torch.as_tensor(_pack_tables(*_slot_tables(qc, instance)), device=device)
 
 
-def _kernel_codes(cn_type, phi_impl, instance):
+def _kernel_codes(cn_type, phi_impl, instance, msg_dtype="float32"):
     """The C launcher's instance key: CN rule, phi form (0 for the rules
-    that do not use phi), DC, DV."""
+    that do not use phi), DC, DV, message carry."""
     phi = PHI_CODES[phi_impl] if cn_type == "boxplus-phi" else 0
-    return (CN_TYPES.index(cn_type), phi) + tuple(instance)
+    return (CN_TYPES.index(cn_type), phi) + tuple(instance) + (MSG_DTYPES.index(msg_dtype),)
 
 
-def _occupancy(qc: QCPair, cn_type, phi_impl, plan: LaunchPlan):
+def _occupancy(qc: QCPair, cn_type, phi_impl, plan: LaunchPlan, msg_dtype="float32"):
     """(resident blocks per SM, registers per thread, spill bytes per
     thread) of the plan's K1 instance on the card, from the CUDA runtime."""
     from .._build import load_kernels
 
     lib = load_kernels()
     out = (ctypes.c_int * 3)()
-    err = lib.fgt_bp4_qc_occupancy(*_kernel_codes(cn_type, phi_impl, plan.instance),
+    err = lib.fgt_bp4_qc_occupancy(*_kernel_codes(cn_type, phi_impl, plan.instance, msg_dtype),
                                    plan.block_threads, plan.smem_bytes, out)
     if err != 0:
         raise RuntimeError(f"bp4_qc occupancy query failed: {lib.fgt_cuda_error_string(err).decode()}")
@@ -421,7 +442,7 @@ def _occupancy(qc: QCPair, cn_type, phi_impl, plan: LaunchPlan):
 
 
 def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type, factor, phi_impl,
-                   plan: LaunchPlan | None = None):
+                   plan: LaunchPlan | None = None, msg_dtype: str = "float32"):
     from .._build import load_kernels
 
     global launches
@@ -442,7 +463,7 @@ def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type
             err = lib.fgt_bp4_qc_launch(
                 llr_k.data_ptr(), synx_k.data_ptr(), synz_k.data_ptr(), out.data_ptr(),
                 tab.data_ptr(), b, n, mx, mz, qc.qx.num_edges + qc.qz.num_edges, int(num_iter),
-                *_kernel_codes(cn_type, phi_impl, plan.instance), ctypes.c_float(factor),
+                *_kernel_codes(cn_type, phi_impl, plan.instance, msg_dtype), ctypes.c_float(factor),
                 plan.threads, plan.samples_per_block, plan.smem_bytes, stream,
             )
         if err != 0:
@@ -463,11 +484,10 @@ def bp4_qc_marginals(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter: int,
     Returns (llrx, llry, llrz), each [n, B].
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Messages are float32; ``msg_dtype="bfloat16"`` (a perf-study switch of
-    the JAX kernel) is not ported.
+    ``msg_dtype`` "bfloat16" rounds each CN output to bfloat16 where it is
+    carried (the module docstring); "float32" carries them unrounded.
     """
-    if msg_dtype != "float32":
-        raise NotImplementedError("only float32 message state is ported")
+    _check_msg_dtype(msg_dtype)
     if cn_type not in CN_TYPES:
         raise ValueError(f"unsupported cn_type {cn_type!r}")
     if phi_impl not in PHI_CODES:
@@ -483,10 +503,10 @@ def bp4_qc_marginals(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter: int,
     dev = devices.pop()
     if dev.type == "cuda":
         return _launch_kernel(qc, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type,
-                              float(normalization_factor), phi_impl)
+                              float(normalization_factor), phi_impl, msg_dtype=msg_dtype)
     if dev.type == "cpu":
         return bp4_qc_marginals_plain(qc, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type,
-                                      normalization_factor, phi_impl)
+                                      normalization_factor, phi_impl, msg_dtype)
     raise ValueError(f"unsupported device {dev}")
 
 

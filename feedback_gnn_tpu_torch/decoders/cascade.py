@@ -68,7 +68,10 @@ class CascadeConfig:
     # batch tile; the gather backend rounds to 8): the rounding decides
     # which samples overflow, so the port keeps it
     qc_batch_tile: int = 128
-    # storage dtype of the decode's message state; only "float32" is ported
+    # the QC decode's message carry (bp4_qc.py): "float32", or "bfloat16",
+    # which rounds each CN output to bfloat16 where it is carried (an
+    # accuracy trade; the rescue stage's runs carry it too); the gather
+    # backend ignores it
     qc_msg_dtype: str = "float32"
     # level-1 compaction: after stage 1, the still-flagged samples go into a
     # sub-batch of ceil(fraction * B) (tile-rounded); None = off

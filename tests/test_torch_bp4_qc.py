@@ -101,8 +101,8 @@ def test_decode_qc_matches_jax(pair):
 def test_rejects_unported_options(pair):
     _, _, tcode, _, tqc = pair
     llr, syn_x, syn_z = (torch.as_tensor(a) for a in _inputs(tcode, 4, 3))
-    with pytest.raises(NotImplementedError):
-        bp4_qc_marginals(tqc, llr, syn_x, syn_z, 2, msg_dtype="bfloat16")
+    with pytest.raises(ValueError, match="msg_dtype"):
+        bp4_qc_marginals(tqc, llr, syn_x, syn_z, 2, msg_dtype="float16")
     with pytest.raises(ValueError):
         bp4_qc_marginals(tqc, llr, syn_x, syn_z, 2, cn_type="sum-product")
     with pytest.raises(ValueError):

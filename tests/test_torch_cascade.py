@@ -180,15 +180,6 @@ def test_entry_runs_on_cpu():
     assert 0 <= int(flagged) <= 256 and 0 <= int(logical) <= 256
 
 
-@pytest.mark.parametrize("unported", ["qc_msg_dtype=bfloat16"])
-def test_unported_paths_raise(gb48, unported):
-    """What stays unported raises: the bfloat16 message carry of the QC
-    decode.  (The sharded and multi-host layouts run:
-    tests/test_torch_parallel*.py hold them.)"""
-    with pytest.raises(NotImplementedError, match="float32"):
-        gb48.run_port(qc_msg_dtype="bfloat16")
-
-
 @pytest.mark.slow
 def test_882_shipped_weights_match_jax_per_sample(ghp882):
     """[[882,24]] with the shipped weights at reduced iterations (8/4, nG=2,

@@ -344,15 +344,16 @@ def _qc_inputs(qc, b, card, seed):
     return llr, sx, sz
 
 
-def _k1_exact(qc, llr, sx, sz, iters, plan, cases):
+def _k1_exact(qc, llr, sx, sz, iters, plan, cases, msg_dtype="float32"):
     for cn_type, phi_impl in cases:
         before = bp4_qc.launches
-        out = bp4_qc._launch_kernel(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl, plan)
+        out = bp4_qc._launch_kernel(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl, plan, msg_dtype)
         assert bp4_qc.launches == before + 1
-        ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl=phi_impl)
+        ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl=phi_impl,
+                                            msg_dtype=msg_dtype)
         torch.cuda.synchronize()
         for o, r in zip(out, ref):
-            assert torch.equal(o, r), (cn_type, phi_impl, plan, float((o - r).abs().max()))
+            assert torch.equal(o, r), (cn_type, phi_impl, msg_dtype, plan, float((o - r).abs().max()))
 
 
 @pytest.mark.gpu
@@ -374,6 +375,50 @@ def test_bp4_qc_kernel_bit_exact_bench_prepass(card):
     plan = bp4_qc._launch_plan(qc, 20480)
     assert plan.regime == "large"
     _k1_exact(qc, *_qc_inputs(qc, 20480, card, 9), 12, plan, CASES[:1])
+
+
+# The bfloat16 message carry: every instance (CN rule, phi form, degree
+# pair) bit for bit against the plain version with msg_dtype="bfloat16", in
+# both launch regimes and on ragged batches, as the float32 carry above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("generic", [False, True], ids=["specialised", "generic"])
+@pytest.mark.parametrize("code,batch", EXACT_SHAPES)
+def test_bp4_qc_bf16_carry_bit_exact(card, code, batch, generic):
+    qc = tc.qc_pair_from_code(CODES[code]())
+    plan = bp4_qc._launch_plan(qc, batch, instance=(0, 0) if generic else None)
+    assert (plan.instance == (0, 0)) == generic
+    _k1_exact(qc, *_qc_inputs(qc, batch, card, 13), 12, plan, CASES, msg_dtype="bfloat16")
+
+
+@pytest.mark.gpu
+def test_bp4_qc_bf16_carry_through_the_wrapper(card):
+    """bp4_qc_marginals with the carry on the card: one launch, the plain
+    version's bits, and other bits than the float32 carry's."""
+    qc = tc.qc_pair_from_code(tc.ghp_882_24())
+    llr, sx, sz = _qc_inputs(qc, 256, card, 14)
+    before = bp4_qc.launches
+    out = bp4_qc.bp4_qc_marginals(qc, llr, sx, sz, 16, msg_dtype="bfloat16")
+    assert bp4_qc.launches == before + 1
+    ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, 16, msg_dtype="bfloat16")
+    f32 = bp4_qc.bp4_qc_marginals(qc, llr, sx, sz, 16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    assert not all(torch.equal(o, r) for o, r in zip(out, f32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phi_impl", [None, "tf", "accurate"])
+def test_bp4_qc_bf16_carry_bit_exact_large(card, phi_impl):
+    """The carry at the bench prepass's [[1270,28]] B=20480 x 12 (large
+    regime) and the rescue's tf and accurate instances at [[882,24]] B=512."""
+    if phi_impl is None:
+        qc = tc.qc_pair_from_code(tc.ghp_1270_28())
+        batch = 20480
+    else:
+        qc, batch = tc.qc_pair_from_code(tc.ghp_882_24()), 512
+    plan = bp4_qc._launch_plan(qc, batch)
+    _k1_exact(qc, *_qc_inputs(qc, batch, card, 15), 12, plan, [("boxplus-phi", phi_impl)],
+              msg_dtype="bfloat16")
 
 
 def _k2_exact(spec, llr, syn, iters, plan, cn_types):

@@ -251,17 +251,21 @@ def _instances(source, pattern):
 
 
 def test_k1_dispatch_has_instances():
-    """Every (CN rule, phi form, DC, DV) K1's launcher can be asked for is
-    instantiated in csrc/bp4_qc.cu."""
+    """Every (CN rule, phi form, DC, DV, message carry) K1's launcher can be
+    asked for is instantiated in csrc/bp4_qc.cu."""
     names = {0: "CN_PHI", 1: "CN_TANH", 2: "CN_MINSUM"}
     phis = {0: "PHI_TANH", 1: "PHI_TF", 2: "PHI_ACCURATE"}
-    found = _instances("bp4_qc.cu", r"\{(CN_\w+), (PHI_\w+), (\d), (\d), bp4_qc_kernel<\1, \2, \3, \4>\}")
+    msgs = {0: "MSG_F32", 1: "MSG_BF16"}
+    found = _instances(
+        "bp4_qc.cu",
+        r"\{(CN_\w+), (PHI_\w+), (\d), (\d), (MSG_\w+), bp4_qc_kernel<\1, \2, \3, \4, \5>\}")
     wanted = set()
     for cn_type, phi_impl in CASES:
         for instance in bp4_qc.SPECIALISED + ((0, 0),):
-            cn, phi, dc, dv = bp4_qc._kernel_codes(cn_type, phi_impl, instance)
-            wanted.add((names[cn], phis[phi], str(dc), str(dv)))
-    assert len(wanted) == 15 and wanted <= found
+            for msg_dtype in bp4_qc.MSG_DTYPES:
+                cn, phi, dc, dv, msg = bp4_qc._kernel_codes(cn_type, phi_impl, instance, msg_dtype)
+                wanted.add((names[cn], phis[phi], str(dc), str(dv), msgs[msg]))
+    assert len(wanted) == 30 and wanted <= found
 
 
 def test_k2_dispatch_has_instances():
