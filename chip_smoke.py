@@ -318,19 +318,16 @@ def k2_bound_ms(spec, batch, iters, cn_type):
 
 
 def reset_counts():
-    from feedback_gnn_tpu_torch import probes
-    from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
+    from feedback_gnn_tpu_torch import obs
 
-    bp4_qc.launches = bp2_qc.launches = 0
-    for name in probes.launches:
-        probes.launches[name] = 0
+    obs.reset()
 
 
 def read_counts():
-    from feedback_gnn_tpu_torch import probes
-    from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
+    from feedback_gnn_tpu_torch import obs, probes
 
-    return {"K1": bp4_qc.launches, "K2": bp2_qc.launches, **probes.launches}
+    return {"K1": obs.counter("k1.launches"), "K2": obs.counter("k2.launches"),
+            **{name: obs.counter(f"probe.{name}.launches") for name in probes.WRAPPERS}}
 
 
 def expected_counts(**launched):
@@ -549,26 +546,6 @@ def time_plans(label, plans, chosen, run, ref, card):
               f"{plan.nodes_per_thread} nodes per thread, {plan.smem_bytes} B, planned "
               f"{plan.blocks_per_sm} blocks per SM: {ms:.4f} ms on {card}{mark}")
     return times
-
-
-def profile_step(label, step, args, step_ms, card):
-    """Device time of one step by kernel name (torch.profiler), and the
-    device's busy share against the step's unprofiled wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        out = step(*args)
-        int(out[0])
-        torch.cuda.synchronize()
-    # kernels only: an operator's own row repeats its kernels' device time
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile {label}: device busy {busy_ms:.3f} ms of a {step_ms:.3f} ms step "
-          f"(busy share {busy_ms / step_ms:.3f}) on {card}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
 def check_against_plain(label, out, ref):
@@ -960,31 +937,6 @@ def osd_card_vs_cpu(label, rec, card):
     return ms
 
 
-def profile_sim_ler(label, step, p, batch, steps, device, card):
-    """The device idle share of sim_ler: the device's busy time over a short
-    sweep of ``steps`` batches (torch.profiler) against the same sweep's
-    unprofiled wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from feedback_gnn_tpu_torch.sim import sim_ler
-
-    kw = dict(batch_size=batch, max_mc_iter=steps, num_target_block_errors=None, verbose=False,
-              device=device)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sim_ler(step, [p], **kw)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t1) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        sim_ler(step, [p], **kw)
-        torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    print(f"profile {label}: sim_ler over {steps} batches: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.3f} on {card}")
-
-
 def probe_library(p):
     """The one PyTorch call that computes the probe's function, as a thunk
     on its inputs (index tables widened to int64 beforehand), or None."""
@@ -1294,8 +1246,7 @@ def run_probes(device, card, phi_sass):
 def run_evaluate(codes, device, card, E=EVALUATE):
     """cli/evaluate.py's run() on [[882,24]] to 100 logical errors; checks
     the target, the overflow, the LER and K1's launches, prints the flagged
-    share at each compaction level and the throughput.  Returns the step
-    (for the profile) and its ms per batch."""
+    share at each compaction level and the throughput."""
     from feedback_gnn_tpu_torch.cli import evaluate
     from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
 
@@ -1331,7 +1282,6 @@ def run_evaluate(codes, device, card, E=EVALUATE):
         raise AssertionError(f"evaluate: LER {ler} outside {LER_SIGMAS} sigma of {E['ref_tf']}")
     if counts != expected_counts(K1=steps * (2 + E["rounds"])):  # prepass, subset, rounds
         raise AssertionError(f"kernel launches {counts} in {steps} evaluate batches")
-    return {"step": evaluate.make_step(cfg, device)[1], "ms": step_ms}
 
 
 def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
@@ -1339,7 +1289,7 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
     tf, tf then accurate at capacity 0.02, and tf at one sample of
     capacity.  The flagged count never rises, the overflow is 0 at 0.02
     and not at one sample, and K1 runs (1 + nG) launches per stage.
-    Returns the tf,accurate step, its ms, and the rescue capacity."""
+    Returns the rescue capacity at 0.02."""
     from dataclasses import replace
 
     from feedback_gnn_tpu_torch.decoders.cascade import CascadeConfig, _capacity, sandwich_eval_step
@@ -1374,18 +1324,13 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
         raise AssertionError("rescue: overflow at rescue_fraction 0.02")
     if not (under[1] > 0 and under[0] <= f_none):
         raise AssertionError(f"rescue at one sample of capacity: overflow {under[1]}, flagged {under[0]}")
-    cfg = replace(base, rescue_phi="tf,accurate")
-
-    def step(gen, p):
-        return sandwich_eval_step(graph, [params], cfg, gen, p, R["batch"], qc=qc, return_overflow=True)
-
-    return {"step": step, "ms": rows[("tf,accurate", 128)][2], "capacity": _capacity(0.02, R["batch"], 128)}
+    return _capacity(0.02, R["batch"], 128)
 
 
 def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
     """One step of the evaluate step on the gather backend (no
     --qc-kernel): LER within LER_SIGMAS of the main path's reference, no
-    kernel launched.  Returns the step and its ms."""
+    kernel launched."""
     from feedback_gnn_tpu_torch.cli import evaluate
     from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
 
@@ -1407,7 +1352,6 @@ def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
         raise AssertionError(f"gather_cascade: LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
     if counts != expected_counts():
         raise AssertionError(f"gather_cascade launched kernels: {counts}")
-    return {"step": step, "ms": ms}
 
 
 def run_osd(bp_rates, device, card, specs=None):
@@ -1415,13 +1359,10 @@ def run_osd(bp_rates, device, card, specs=None):
     fixed number of batches), each OSD sub-batch sized from ``bp_rates``,
     the flagged rates of its BP; checks the LER, the overflow and that no
     kernel ran, and holds the card's osd0_decode to the CPU's on one
-    recorded sub-batch.  Returns {mode: (step, argv, ms per batch, ms of
-    one osd0_decode)}."""
+    recorded sub-batch; prints OSD's share of a batch's time."""
     from feedback_gnn_tpu_torch.cli import osd_eval
-    from feedback_gnn_tpu_torch.codes import ghp_882_24
 
     specs = specs or {"bp2-osd": OSD_BP2, "bp4-osd": OSD_BP4}
-    runs = {}
     for mode, spec in specs.items():
         cap = osd_capacity(bp_rates[mode], spec["batch"])
         argv = ["--mode", mode, "-p", str(spec["p"]), "-bs", str(spec["batch"]), "--osd-cap", str(cap),
@@ -1458,9 +1399,9 @@ def run_osd(bp_rates, device, card, specs=None):
             raise AssertionError(f"{mode}: LER {ler} outside {LER_SIGMAS} sigma of {spec['ref']}")
         if counts != expected_counts():
             raise AssertionError(f"{mode} launched kernels: {counts}")
-        step, _ = osd_eval.make_step(osd_eval.make_parser().parse_args(argv), ghp_882_24(), device)
-        runs[mode] = (step, argv, step_ms, osd_ms)
-    return runs
+        calls = 2 if mode == "bp4-osd" else 1
+        print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms:.3f} ms batch "
+              f"(OSD share {calls * osd_ms / step_ms:.3f}) on {card}")
 
 
 @contextlib.contextmanager
@@ -1560,7 +1501,7 @@ def run_train(codes, code882, device, card, T=TRAIN):
     """Training on the card: the K1 miners against their plain versions, one
     train step against the CPU, the loss falling at full width, rates, the
     curriculum CLI end to end and resumed, checkpoints.  Returns the timing
-    rows of K1 at the miners' shape and a train step for the profile."""
+    row of K1 at the miners' shape and a train step's ms."""
     from feedback_gnn_tpu_torch.cli import train_from_scratch
     from feedback_gnn_tpu_torch.codes import QuantumGraph
     from feedback_gnn_tpu_torch.config import CODE_REGISTRY
@@ -1746,11 +1687,7 @@ def run_train(codes, code882, device, card, T=TRAIN):
               f"(the evaluation's {want})")
         if not kept or counts != expected_counts(K1=want) or again["trained"] != res["trained"]:
             raise AssertionError("train_from_scratch did not resume from its artifacts")
-
-    def train_step():
-        return (step(params, state, nx, nz)[2],)
-
-    return {"k1": (k_ms, p_ms, b_ms, b_by), "step": train_step, "ms": step_ms}
+    return {"k1": (k_ms, p_ms, b_ms, b_by), "ms": step_ms}
 
 
 def two_sample_sigmas(count, samples, ref, ref_samples):
@@ -1832,8 +1769,8 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     """GNN_BP4 on the card: the shipped trained weights' LERs, card against
     CPU (forward, loss and gradients), the eval and train steps' rates and
     memory, cli/train_gnn_bp4.py end to end, cli/qldpc_codes.py and
-    cli/n1270.py --qc-kernel.  Returns the steps and times for the profile
-    and K1's rows at cli/n1270.py's shapes."""
+    cli/n1270.py --qc-kernel.  Returns the eval and train steps' ms and
+    K1's rows at cli/n1270.py's shapes."""
     from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
     from feedback_gnn_tpu_torch.cli import n1270, qldpc_codes, train_gnn_bp4
     from feedback_gnn_tpu_torch.codes import QuantumGraph
@@ -1912,7 +1849,6 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     print(f"gnn_bp4 eval step [[882,24]] B={G['batch']} p={p}: {blocks / secs:.1f} syndromes/s "
           f"({out['eval_ms']:.3f} ms a batch); peak memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above "
           f"the {base / 1e9:.3f} GB held) on {card}", flush=True)
-    out["eval"] = lambda: eval_step(gen, p)
 
     # 3. card against CPU, forward: per-iteration logits and the hard decisions
     graph, rs, params, cfg = cards["n882"]
@@ -1991,7 +1927,7 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     losses = [train_once()[0] for _ in range(G["rate_steps"])]
     float(losses[-1])
     dt = time.perf_counter() - t1
-    out["train"], out["train_ms"] = train_once, dt / G["rate_steps"] * 1e3
+    out["train_ms"] = dt / G["rate_steps"] * 1e3
     print(f"gnn_bp4 train step [[882,24]] B={B}: {G['rate_steps'] / dt:.3f} steps/s, "
           f"{G['rate_steps'] * B / dt:.1f} samples/s ({out['train_ms']:.3f} ms a step); peak memory of a step "
           f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held); "
@@ -2401,7 +2337,7 @@ def main() -> int:
     if counts != expected_counts(K1=LER_STEPS * (1 + 3)):
         raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, K2=0")
     rates, step_ms, _ = timed_windows(fn, (gen, 0.08), 256)
-    main_ms = report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
+    report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
     phase("main_path", t0)
 
     # 5. bench.py's workload through cli/bench.py: [[1270,28]], nG=5,
@@ -2421,7 +2357,7 @@ def main() -> int:
     flagged_b = sum(int(c[0]) for c in counts)
     logical_b = sum(int(c[1]) for c in counts)
     overflow = sum(int(c[2]) for c in counts)
-    bench_ms = report_rate(f"bench [[1270,28]] nG=5 p={settings.p} B={settings.batch}", rates, step_ms, card)
+    report_rate(f"bench [[1270,28]] nG=5 p={settings.p} B={settings.batch}", rates, step_ms, card)
     print(f"bench: {len(counts)} steps, flagged={flagged_b} logical={logical_b} overflow={overflow} "
           f"launches={launches_b}; metric {bench.METRIC}, vs_baseline "
           f"{statistics.median(rates) / bench.BASELINE_SYNDROMES_PER_S:.2f}")
@@ -2439,13 +2375,13 @@ def main() -> int:
     # 6.-8. the evaluate CLI to 100 logical errors, the rescue stage, the
     # evaluate step on the gather backend
     t0 = time.perf_counter()
-    ev = run_evaluate(codes, device, card)
+    run_evaluate(codes, device, card)
     phase("evaluate", t0)
     t0 = time.perf_counter()
-    rs = run_rescue(codes, device, card)
+    rescue_cap = run_rescue(codes, device, card)
     phase("rescue", t0)
     t0 = time.perf_counter()
-    ga = run_gather_cascade(device, card)
+    run_gather_cascade(device, card)
     phase("gather_cascade", t0)
 
     # 9. K1 against its plain version, and both times, at every shape the
@@ -2456,7 +2392,6 @@ def main() -> int:
     from feedback_gnn_tpu_torch.decoders.cascade import _capacity
 
     E = EVALUATE
-    rescue_cap = rs["capacity"]
     cap1 = _capacity(cfg.compact_fraction, settings.batch, cfg.qc_batch_tile)
     cap2 = _capacity(cfg.round_fraction, settings.batch, cfg.qc_batch_tile)
     ecap1 = _capacity(E["compact"], E["batch"], 128)
@@ -2547,8 +2482,8 @@ def main() -> int:
     if counts != expected_counts(K2=BP2["steps"]):
         raise AssertionError(f"kernel launches {counts} in {BP2['steps']} bp2_path steps")
     rates, step_ms, _ = timed_windows(bp2_step, (gen, BP2["p"]), BP2["batch"])
-    bp2_ms = report_rate(f"bp2_path throughput [[882,24]] hx B={BP2['batch']} p={BP2['p']}",
-                         rates, step_ms, card)
+    report_rate(f"bp2_path throughput [[882,24]] hx B={BP2['batch']} p={BP2['p']}",
+                rates, step_ms, card)
     phase("bp2_path", t0)
 
     # 11. the plain gather BP4 path on [[882,24]] (runs no kernel)
@@ -2578,13 +2513,12 @@ def main() -> int:
     check_rate(f"bp4_plain_path [[882,24]] p={BP4_PLAIN['p']} {BP4_PLAIN['cn_type']} "
                f"f={BP4_PLAIN['factor']} x{BP4_PLAIN['iters']} B={BP4_PLAIN['batch']}",
                flagged4, BP4_PLAIN["steps"] * BP4_PLAIN["batch"], BP4_PLAIN["ref"], BP4_PLAIN["tf"])
-    bp4_ms = statistics.median(bp4_step_ms)
     phase("bp4_plain_path", t0)
 
     # 12. BP + OSD-0 through cli/osd_eval.py, OSD sub-batches sized from
     # the flagged rates bp2_path and bp4_plain_path measured for their BP
     t0 = time.perf_counter()
-    osd_runs = run_osd({"bp2-osd": flagged2 / (BP2["steps"] * BP2["batch"]),
+    run_osd({"bp2-osd": flagged2 / (BP2["steps"] * BP2["batch"]),
                         "bp4-osd": flagged4 / (BP4_PLAIN["steps"] * BP4_PLAIN["batch"])}, device, card)
     phase("osd", t0)
 
@@ -2627,46 +2561,18 @@ def main() -> int:
 
     # 15. training: the K1 miners, the train step, the curriculum CLI
     t0 = time.perf_counter()
-    tr = run_train(codes, code882, device, card)
+    run_train(codes, code882, device, card)
     phase("train", t0)
 
     # 16. GNN_BP4 and the example CLIs
     t0 = time.perf_counter()
-    gn = run_gnn_bp4(codes, device, card)
+    run_gnn_bp4(codes, device, card)
     phase("gnn_bp4", t0)
 
     # 17. multi-device: data-parallel and edge-sharded ranks
     t0 = time.perf_counter()
     run_parallel(codes, code882, device, card)
     phase("parallel", t0)
-
-    # 18. where a step's device time goes
-    t0 = time.perf_counter()
-    profile_step("main path [[882,24]] B=256 p=0.08", fn, (gen, 0.08), main_ms, card)
-    profile_step(f"bench [[1270,28]] B={settings.batch} p={settings.p}", step, (gen, settings.p),
-                 bench_ms, card)
-    estep = ev["step"]
-    profile_step(f"evaluate [[882,24]] B={E['batch']} p={E['p']}", estep, (gen, E["p"]), ev["ms"], card)
-    profile_sim_ler(f"evaluate [[882,24]] B={E['batch']} p={E['p']}", estep, E["p"], E["batch"], 8,
-                    device, card)
-    profile_step(f"rescue tf,accurate [[882,24]] B={RESCUE['batch']} p={RESCUE['p']}", rs["step"],
-                 (gen, RESCUE["p"]), rs["ms"], card)
-    profile_step(f"gather_cascade [[882,24]] B={GATHER['batch']} p={GATHER['p']}", ga["step"],
-                 (gen, GATHER["p"]), ga["ms"], card)
-    profile_step(f"bp2_path [[882,24]] hx B={BP2['batch']} p={BP2['p']}", bp2_step, (gen, BP2["p"]),
-                 bp2_ms, card)
-    profile_step(f"bp4_plain_path [[882,24]] B={BP4_PLAIN['batch']} p={BP4_PLAIN['p']}", bp4_step,
-                 (gen, BP4_PLAIN["p"]), bp4_ms, card)
-    for mode, (ostep, argv, step_ms_o, osd_ms) in osd_runs.items():
-        calls = 2 if mode == "bp4-osd" else 1
-        print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms_o:.3f} ms batch "
-              f"(OSD share {calls * osd_ms / step_ms_o:.3f}) on {card}")
-        profile_step(f"osd {mode} [[882,24]]", ostep, (gen, float(argv[argv.index("-p") + 1])), step_ms_o, card)
-    profile_step(f"train step 64/16 [[882,24]] B={TRAIN['step_batch']}", tr["step"], (), tr["ms"], card)
-    profile_step(f"gnn_bp4 eval step [[882,24]] B={GNN_BP4['batch']} p=0.03", gn["eval"], (), gn["eval_ms"], card)
-    profile_step(f"gnn_bp4 train step [[882,24]] B={GNN_BP4['train_batch']}", gn["train"], (), gn["train_ms"],
-                 card)
-    phase("profile", t0)
 
     k_ms, p_ms, b_ms, b_by = timing[("n882", 256, 64, None)]
     kernels = {"kernels": [

@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import time
 
+from . import obs
+
 __all__ = ["load_kernels", "build_info"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -97,9 +99,15 @@ def _build(lib: str) -> None:
 
 def load_kernels() -> ctypes.CDLL:
     """The kernels' library, built first if this source revision has none."""
+    if _lib is None:
+        _load()
+    return _lib
+
+
+@obs.setup("kernels")
+def _load() -> None:
+    """Build the library if need be, dlopen it and declare its functions."""
     global _lib
-    if _lib is not None:
-        return _lib
     lib = _lib_path()
     build_info.update(library=lib, seconds=0.0, built=False)
     if not os.path.exists(lib):
@@ -130,4 +138,3 @@ def load_kernels() -> ctypes.CDLL:
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll
-    return _lib

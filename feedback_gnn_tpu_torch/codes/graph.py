@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
+
 __all__ = ["TannerGraph", "RowSet", "build_graph", "build_rowset", "QuantumGraph", "pad_rows"]
 
 
@@ -266,6 +268,7 @@ class QuantumGraph:
         )
 
     @staticmethod
+    @obs.setup("code", fn="QuantumGraph.from_code")
     def from_code(code, stage_mode: bool = True) -> "QuantumGraph":
         pcm_x_perp = code.hz if stage_mode else code.hx_perp
         pcm_z_perp = code.hx if stage_mode else code.hz_perp

@@ -19,6 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import obs
+
 __all__ = ["QCGraphSpec", "QCPair", "detect_qc_structure", "qc_pair_from_code"]
 
 
@@ -119,6 +121,7 @@ def _guess_lifts(code) -> list:
     return cands
 
 
+@obs.setup("code", fn="qc_pair_from_code")
 def qc_pair_from_code(code, l: int | None = None) -> QCPair | None:
     """Detect block-circulant structure on both Hx and Hz of a CSS code.
 

@@ -15,7 +15,7 @@ import argparse
 import os
 from dataclasses import dataclass, field
 
-from . import REPO_ROOT
+from . import REPO_ROOT, obs
 from .decoders.cascade import CascadeConfig
 
 __all__ = ["EvalConfig", "CODE_REGISTRY", "build_code", "make_eval_parser", "config_from_args"]
@@ -44,6 +44,7 @@ CODE_REGISTRY = {
 }
 
 
+@obs.setup("code", fn="build_code")
 def build_code(name: str):
     from . import codes
 

@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import obs
 from ..codes.qc import QCGraphSpec
 from .bp4_qc import (
     CN_TYPES, MAX_DEG, NO_SLOT, LaunchPlan, _cn_plain, _cn_slots, _instance, _pack_tables, _plan,
@@ -31,10 +32,7 @@ from .bp4_qc import (
 )
 from .cn_update import LLR_MAX
 
-__all__ = ["bp2_qc_logits", "bp2_qc_logits_plain", "launches"]
-
-# kernel launches since the last reset; the plain version does not count
-launches = 0
+__all__ = ["bp2_qc_logits", "bp2_qc_logits_plain"]
 
 
 def _vn_totals(v, side: _SideIndex, llr):
@@ -129,7 +127,6 @@ def _launch_kernel(spec: QCGraphSpec, llr_ch, syndrome, num_iter, cn_type, facto
                    plan: LaunchPlan | None = None):
     from .._build import load_kernels
 
-    global launches
     lib = load_kernels()
     dev = llr_ch.device
     n, m, b = spec.nb * spec.l, spec.mb * spec.l, llr_ch.shape[-1]
@@ -150,7 +147,7 @@ def _launch_kernel(spec: QCGraphSpec, llr_ch, syndrome, num_iter, cn_type, facto
             )
         if err != 0:
             raise RuntimeError(f"bp2_qc kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")
-        launches += 1
+        obs.count("k2.launches")  # the plain version does not count
     return out.T  # [n, B]
 
 

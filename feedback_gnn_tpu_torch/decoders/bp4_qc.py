@@ -38,13 +38,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..codes.qc import QCGraphSpec, QCPair
 from .bp4 import BP4Result, _cal_logit, hard_decision
 from .cn_update import (
     ATANH_CLIP, LLR_MAX, PHI_CLIP_MAX, PHI_CLIP_MIN, _LARGE_VAL, _tanh_sat, softplus,
 )
 
-__all__ = ["bp4_qc_marginals", "bp4_qc_marginals_plain", "bp4_decode_qc", "qc_supported", "launches"]
+__all__ = ["bp4_qc_marginals", "bp4_qc_marginals_plain", "bp4_decode_qc", "qc_supported"]
 
 CN_TYPES = ("boxplus-phi", "boxplus", "minsum")
 # message carry -> the kernel's code (0: float32; 1: each CN output rounded to bfloat16)
@@ -64,9 +65,6 @@ MAX_SAMPLES_PER_BLOCK = 15  # named barriers 1..15, one per sample
 ENOUGH_WARPS = 16  # resident warps per SM a large-batch plan must keep
 # K1's __launch_bounds__(1024, 1): registers per thread and threads per block
 K1_REGS, K1_MAX_THREADS = 64, 1024
-
-# kernel launches since the last reset; the plain version does not count
-launches = 0
 
 
 def qc_supported(cn_type: str) -> bool:
@@ -445,7 +443,6 @@ def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type
                    plan: LaunchPlan | None = None, msg_dtype: str = "float32"):
     from .._build import load_kernels
 
-    global launches
     lib = load_kernels()
     dev = llr_ch.device
     n, b = qc.n, llr_ch.shape[-1]
@@ -460,15 +457,17 @@ def _launch_kernel(qc: QCPair, llr_ch, syndrome_x, syndrome_z, num_iter, cn_type
         tab = _kernel_table(qc, plan.instance, dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fgt_bp4_qc_launch(
-                llr_k.data_ptr(), synx_k.data_ptr(), synz_k.data_ptr(), out.data_ptr(),
-                tab.data_ptr(), b, n, mx, mz, qc.qx.num_edges + qc.qz.num_edges, int(num_iter),
-                *_kernel_codes(cn_type, phi_impl, plan.instance, msg_dtype), ctypes.c_float(factor),
-                plan.threads, plan.samples_per_block, plan.smem_bytes, stream,
-            )
+            with obs.span("k1.kernel"):
+                err = lib.fgt_bp4_qc_launch(
+                    llr_k.data_ptr(), synx_k.data_ptr(), synz_k.data_ptr(), out.data_ptr(),
+                    tab.data_ptr(), b, n, mx, mz, qc.qx.num_edges + qc.qz.num_edges, int(num_iter),
+                    *_kernel_codes(cn_type, phi_impl, plan.instance, msg_dtype), ctypes.c_float(factor),
+                    plan.threads, plan.samples_per_block, plan.smem_bytes, stream,
+                )
         if err != 0:
             raise RuntimeError(f"bp4_qc kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")
-        launches += 1
+        # the launch's shape, as the benchmark counts K1's operations; the plain version does not count
+        obs.count("k1.launches", key=(b, int(num_iter), cn_type, phi_impl, msg_dtype))
     out = out.permute(1, 2, 0)  # [3, n, B]
     return out[0], out[1], out[2]
 

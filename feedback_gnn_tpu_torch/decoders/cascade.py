@@ -23,6 +23,14 @@ Two process groups thread through, as the JAX package's mesh axes do:
 per-sample flags are or-reduced over it, and the gather decoder sums its VN
 sums over it), and ``data_axis``, the group of the data-parallel ranks
 (each rank draws its own samples, and the counts are summed over it).
+
+Spans (obs.py) split an evaluation step into stages, each device operation
+of a batch under exactly one: ``step.sample`` (noise, syndromes, prior),
+``cascade.bp`` (every BP run, by ``stage``), ``cascade.gnn`` (by
+``round``), ``cascade.compact`` (flags, compaction, masked updates,
+scatters) and ``step.account`` (the counts); the rescue stage has none of
+its own.  While tracing is on, each compaction level counts its flagged
+samples against its capacity (``_fill``).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..channels.pauli import depolarizing_probs, pauli_fixed_weight, pauli_iid
 from ..ops.gf2mat import mod2_matmul
 from ..parallel.collectives import por, psum
@@ -117,6 +126,14 @@ def _take_res(res: BP4Result, idx):
     return BP4Result(*[_take(f, idx) if f is not None else None for f in res])
 
 
+def _fill(level, flags, capacity):
+    """While tracing is on, count a level's flagged samples (on the device)
+    against its capacity: ``cascade.flagged.<level>``, ``cascade.capacity.<level>``."""
+    if obs.on():
+        obs.count_device(f"cascade.flagged.{level}", flags)
+        obs.count(f"cascade.capacity.{level}", capacity)
+
+
 def _flagged_first(flags, cap):
     """The first ``cap`` sample indices, flagged samples first in their
     original order (stable sort), and which of those are flagged."""
@@ -155,14 +172,13 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
         if cfg.rescue_phi is not None:
             raise ValueError(_UNSHARDED_ROWS.format("rescue_phi", "--rescue-phi"))
 
-    if qc is not None:
-        def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
-            return bp4_decode_qc(graph, qc, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
-                                 need_logits=need_logits, msg_dtype=cfg.qc_msg_dtype,
-                                 phi_impl=phi_impl)
-    else:
-        def run_bp(llr, syn_x, syn_z, num_iter, factor, need_logits=True):
-            del need_logits  # the gather decoder always computes the logits
+    def run_bp(stage, llr, syn_x, syn_z, num_iter, factor, need_logits=True, **attrs):
+        with obs.span("cascade.bp", stage=stage, **attrs):
+            if qc is not None:
+                return bp4_decode_qc(graph, qc, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
+                                     need_logits=need_logits, msg_dtype=cfg.qc_msg_dtype,
+                                     phi_impl=phi_impl)
+            # the gather decoder always computes the logits
             return bp4_decode(graph, llr, syn_x, syn_z, num_iter, cfg.cn_type, factor,
                               phi_impl=phi_impl, axis=axis)
 
@@ -174,22 +190,23 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
     def gnn_rounds(res, x_hat, z_hat, syn_x, syn_z, gt, errors):
         """The nG (GNN -> BP-16 -> masked update) rounds."""
         for r in range(cfg.num_rounds):
-            errors = errors & syndromes_differ(x_hat, z_hat, gt)
-            h_vn = torch.stack([res.llrx, res.llry, res.llrz], dim=0)
-            new_llr = feedback_gnn_apply(
-                gnn_params_list[min(r, len(gnn_params_list) - 1)], graph, h_vn,
-                res.z_logit,  # per-Hx-row logits (stage-mode z_logit)
-                res.x_logit,  # per-Hz-row logits (stage-mode x_logit)
-                syn_x, syn_z, axis,
-            )
-            res = run_bp(new_llr, syn_x, syn_z, cfg.num_iter2, cfg.factor2)
-            # masked update: only still-flagged samples adopt the new estimate
-            x_hat = torch.where(errors[None, :], res.x_hat, x_hat)
-            z_hat = torch.where(errors[None, :], res.z_hat, z_hat)
+            with obs.span("cascade.compact"):
+                errors = errors & syndromes_differ(x_hat, z_hat, gt)
+                _fill("round", errors, errors.shape[0])
+            with obs.span("cascade.gnn", round=r):
+                h_vn = torch.stack([res.llrx, res.llry, res.llrz], dim=0)
+                new_llr = feedback_gnn_apply(
+                    gnn_params_list[min(r, len(gnn_params_list) - 1)], graph, h_vn,
+                    res.z_logit,  # per-Hx-row logits (stage-mode z_logit)
+                    res.x_logit,  # per-Hz-row logits (stage-mode x_logit)
+                    syn_x, syn_z, axis,
+                )
+            res = run_bp("round", new_llr, syn_x, syn_z, cfg.num_iter2, cfg.factor2, round=r)
+            with obs.span("cascade.compact"):
+                # masked update: only still-flagged samples adopt the new estimate
+                x_hat = torch.where(errors[None, :], res.x_hat, x_hat)
+                z_hat = torch.where(errors[None, :], res.z_hat, z_hat)
         return x_hat, z_hat
-
-    # gt comparison rows: [Hz rows; Hx rows]
-    gt = torch.cat([gt_sx, gt_sz], dim=0)
 
     stage1_iters = cfg.num_iter1
     if cfg.stage1_prepass is not None:
@@ -198,8 +215,8 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
         stage1_iters = min(cfg.stage1_prepass, cfg.num_iter1)
     # the prepass result never feeds the GNN, so it skips the check logits
     prepass_active = cfg.stage1_prepass is not None and stage1_iters < cfg.num_iter1
-    res = run_bp(llr0, syndrome_x, syndrome_z, stage1_iters, cfg.factor1,
-                 need_logits=not prepass_active)
+    res = run_bp("prepass" if prepass_active else "stage1", llr0, syndrome_x, syndrome_z, stage1_iters,
+                 cfg.factor1, need_logits=not prepass_active)
     x_hat, z_hat = res.x_hat, res.z_hat
     b = x_hat.shape[-1]
     dev = x_hat.device
@@ -215,52 +232,68 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
                     gt_sx, gt_sz, x_hat, z_hat, qc=qc, main_phi_impl=phi_impl)
                 ov_mask = torch.maximum(ov_mask, r_ov_mask)
         if with_overflow:
-            return x_hat, z_hat, ov_mask.sum()
+            with obs.span("cascade.compact"):
+                return x_hat, z_hat, ov_mask.sum()
         return x_hat, z_hat
 
     if not cfg.compact_fraction:  # None and 0.0 both mean "off"
         if cfg.round_fraction:
             raise ValueError("round_fraction requires compact_fraction")
-        x_hat, z_hat = gnn_rounds(res, x_hat, z_hat, syndrome_x, syndrome_z, gt,
-                                  torch.ones(b, dtype=torch.bool, device=dev))
-        return finish(x_hat, z_hat, torch.zeros(b, dtype=torch.int32, device=dev))
+        with obs.span("cascade.compact"):
+            gt = torch.cat([gt_sx, gt_sz], dim=0)  # rows: [Hz rows; Hx rows]
+            everyone = torch.ones(b, dtype=torch.bool, device=dev)
+            ov_mask = torch.zeros(b, dtype=torch.int32, device=dev)
+        x_hat, z_hat = gnn_rounds(res, x_hat, z_hat, syndrome_x, syndrome_z, gt, everyone)
+        return finish(x_hat, z_hat, ov_mask)
 
     # ---- flagged-sample compaction ----
-    cap = _capacity(cfg.compact_fraction, b, tile)
-    flags0 = syndromes_differ(x_hat, z_hat, gt)
-    idx, valid = _flagged_first(flags0, cap)
-    syn_x_s, syn_z_s, gt_s = _take(syndrome_x, idx), _take(syndrome_z, idx), _take(gt, idx)
+    with obs.span("cascade.compact"):
+        gt = torch.cat([gt_sx, gt_sz], dim=0)  # rows: [Hz rows; Hx rows]
+        cap = _capacity(cfg.compact_fraction, b, tile)
+        flags0 = syndromes_differ(x_hat, z_hat, gt)
+        _fill("level1", flags0, cap)
+        idx, valid = _flagged_first(flags0, cap)
+        syn_x_s, syn_z_s, gt_s = _take(syndrome_x, idx), _take(syndrome_z, idx), _take(gt, idx)
+        if prepass_active:
+            llr_s = _take(llr0, idx)
+        else:
+            sub_res = _take_res(res, idx)
+            x_s, z_s = _take(x_hat, idx), _take(z_hat, idx)
 
     if prepass_active:
         # re-run the full stage-1 schedule on the flagged subset only
-        sub_res = run_bp(_take(llr0, idx), syn_x_s, syn_z_s, cfg.num_iter1, cfg.factor1)
-        x_s = torch.where(valid[None, :], sub_res.x_hat, _take(x_hat, idx))
-        z_s = torch.where(valid[None, :], sub_res.z_hat, _take(z_hat, idx))
-    else:
-        sub_res = _take_res(res, idx)
-        x_s, z_s = _take(x_hat, idx), _take(z_hat, idx)
+        sub_res = run_bp("level1", llr_s, syn_x_s, syn_z_s, cfg.num_iter1, cfg.factor1)
 
-    # samples flagged after stage 1 but beyond the level-1 capacity
-    covered = torch.zeros(b, dtype=torch.bool, device=dev).index_copy(0, idx, valid)
-    ov_mask = (flags0 & ~covered).to(torch.int32)
+    with obs.span("cascade.compact"):
+        if prepass_active:
+            x_s = torch.where(valid[None, :], sub_res.x_hat, _take(x_hat, idx))
+            z_s = torch.where(valid[None, :], sub_res.z_hat, _take(z_hat, idx))
 
-    if cfg.round_fraction is not None:
-        # level 2: the GNN rounds act only on samples still flagged after
-        # the full stage-1 schedule
-        cap2 = min(cap, _capacity(cfg.round_fraction, b, tile))
-        flags1 = syndromes_differ(x_s, z_s, gt_s) & valid
-        idx2, valid2 = _flagged_first(flags1, cap2)
-        covered2 = torch.zeros(cap, dtype=torch.bool, device=dev).index_copy(0, idx2, valid2)
-        sub_ov = flags1 & ~covered2
-        ov_mask = ov_mask.scatter_reduce(0, idx, sub_ov.to(torch.int32), "amax")
-        x2, z2 = gnn_rounds(_take_res(sub_res, idx2), _take(x_s, idx2), _take(z_s, idx2),
-                            _take(syn_x_s, idx2), _take(syn_z_s, idx2), _take(gt_s, idx2), valid2)
-        x_sub = x_s.index_copy(1, idx2, x2)
-        z_sub = z_s.index_copy(1, idx2, z2)
-    else:
-        x_sub, z_sub = gnn_rounds(sub_res, x_s, z_s, syn_x_s, syn_z_s, gt_s, valid)
-    x_hat = x_hat.index_copy(1, idx, x_sub)
-    z_hat = z_hat.index_copy(1, idx, z_sub)
+        # samples flagged after stage 1 but beyond the level-1 capacity
+        covered = torch.zeros(b, dtype=torch.bool, device=dev).index_copy(0, idx, valid)
+        ov_mask = (flags0 & ~covered).to(torch.int32)
+
+        if cfg.round_fraction is not None:
+            # level 2: the GNN rounds act only on samples still flagged after
+            # the full stage-1 schedule
+            cap2 = min(cap, _capacity(cfg.round_fraction, b, tile))
+            flags1 = syndromes_differ(x_s, z_s, gt_s) & valid
+            _fill("level2", flags1, cap2)
+            idx2, valid2 = _flagged_first(flags1, cap2)
+            covered2 = torch.zeros(cap, dtype=torch.bool, device=dev).index_copy(0, idx2, valid2)
+            sub_ov = flags1 & ~covered2
+            ov_mask = ov_mask.scatter_reduce(0, idx, sub_ov.to(torch.int32), "amax")
+            rounds_in = (_take_res(sub_res, idx2), _take(x_s, idx2), _take(z_s, idx2),
+                         _take(syn_x_s, idx2), _take(syn_z_s, idx2), _take(gt_s, idx2), valid2)
+        else:
+            rounds_in = (sub_res, x_s, z_s, syn_x_s, syn_z_s, gt_s, valid)
+
+    x_r, z_r = gnn_rounds(*rounds_in)
+    with obs.span("cascade.compact"):
+        if cfg.round_fraction is not None:
+            x_r, z_r = x_s.index_copy(1, idx2, x_r), z_s.index_copy(1, idx2, z_r)
+        x_hat = x_hat.index_copy(1, idx, x_r)
+        z_hat = z_hat.index_copy(1, idx, z_r)
     return finish(x_hat, z_hat, ov_mask)
 
 
@@ -290,41 +323,46 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
     caller seeds each data rank's generator (``data_seed``).
     """
     n, n_pad = graph.n, graph.n_pad
-    if wt is not None:
-        noise_x, noise_z = pauli_fixed_weight(generator, wt, n, batch)
-    else:
-        px, py, pz = depolarizing_probs(p)
-        noise_x, noise_z = pauli_iid(generator, px, py, pz, n, batch)
-    # aligned padded layout: zero pad rows
-    noise_x = torch.nn.functional.pad(noise_x.to(torch.int32), (0, 0, 0, n_pad - n))
-    noise_z = torch.nn.functional.pad(noise_z.to(torch.int32), (0, 0, 0, n_pad - n))
-
     hx, hz = graph.hx, graph.hz
-    syndrome_x = mod2_matmul(hx, noise_z)  # [mx, B]
-    syndrome_z = mod2_matmul(hz, noise_x)  # [mz, B]
-    # ground-truth syndromes for the flag tracking: the same products
-    gt_sx, gt_sz = syndrome_z, syndrome_x
+    with obs.span("step.sample"):
+        if wt is not None:
+            noise_x, noise_z = pauli_fixed_weight(generator, wt, n, batch)
+        else:
+            px, py, pz = depolarizing_probs(p)
+            noise_x, noise_z = pauli_iid(generator, px, py, pz, n, batch)
+        # aligned padded layout: zero pad rows
+        noise_x = torch.nn.functional.pad(noise_x.to(torch.int32), (0, 0, 0, n_pad - n))
+        noise_z = torch.nn.functional.pad(noise_z.to(torch.int32), (0, 0, 0, n_pad - n))
 
-    llr0 = prior_llr(cfg.p0, n, batch, n_pad=n_pad, device=noise_x.device)
+        syndrome_x = mod2_matmul(hx, noise_z)  # [mx, B]
+        syndrome_z = mod2_matmul(hz, noise_x)  # [mz, B]
+        # ground-truth syndromes for the flag tracking: the same products
+        gt_sx, gt_sz = syndrome_z, syndrome_x
+
+        llr0 = prior_llr(cfg.p0, n, batch, n_pad=n_pad, device=noise_x.device)
     dec = sandwich_decode(graph, gnn_params_list, cfg, llr0, syndrome_x, syndrome_z, gt_sx, gt_sz,
                           qc=qc, with_overflow=return_overflow, axis=axis)
-    x_diff = noise_x ^ dec[0]
-    z_diff = noise_z ^ dec[1]
+    with obs.span("step.account"):
+        x_diff = noise_x ^ dec[0]
+        z_diff = noise_z ^ dec[1]
 
-    sx, sz = mod2_matmul(hz, x_diff), mod2_matmul(hx, z_diff)
-    lsx, lsz = mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)
-    if return_full:
-        s_hat = torch.cat([sx[: graph.gz.num_cn], sz[: graph.gx.num_cn]], dim=0)
-        ls_hat = torch.cat([lsx[: graph.hx_perp_rows], lsz[: graph.hz_perp_rows]], dim=0)
-        return s_hat.T, ls_hat.T
-    flagged = (torch.cat([sx, sz], dim=0) != 0).any(dim=0)
-    logical = (torch.cat([lsx, lsz], dim=0) != 0).any(dim=0)
-    # rows sharded over the edge axis: per-sample or-reduce first
-    counts = por(torch.stack([flagged, logical]), axis).sum(dim=1)
-    if return_overflow:
-        counts = torch.cat([counts, dec[2].reshape(1).to(counts.dtype)])
-    # batch sharded over the data axis: sum the counts across the ranks
-    return tuple(psum(counts, data_axis).unbind(0))
+        sx, sz = mod2_matmul(hz, x_diff), mod2_matmul(hx, z_diff)
+        lsx, lsz = mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)
+        if return_full:
+            s_hat = torch.cat([sx[: graph.gz.num_cn], sz[: graph.gx.num_cn]], dim=0)
+            ls_hat = torch.cat([lsx[: graph.hx_perp_rows], lsz[: graph.hz_perp_rows]], dim=0)
+            out = s_hat.T, ls_hat.T
+        else:
+            flagged = (torch.cat([sx, sz], dim=0) != 0).any(dim=0)
+            logical = (torch.cat([lsx, lsz], dim=0) != 0).any(dim=0)
+            # rows sharded over the edge axis: per-sample or-reduce first
+            counts = por(torch.stack([flagged, logical]), axis).sum(dim=1)
+            if return_overflow:
+                counts = torch.cat([counts, dec[2].reshape(1).to(counts.dtype)])
+            # batch sharded over the data axis: sum the counts across the ranks
+            out = tuple(psum(counts, data_axis).unbind(0))
+    obs.end_batch()
+    return out
 
 
 def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x, syndrome_z,

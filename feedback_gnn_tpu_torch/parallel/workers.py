@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from ..decoders import bp4_qc
+from .. import obs
 from ..decoders.bp2 import bp2_decode
 from ..decoders.bp4 import bp4_decode
 from ..decoders.cascade import prior_llr, sandwich_decode
@@ -68,13 +68,13 @@ def eval_counts(mesh_shape, graph, params, cfg, local_batch, seeds, p, qc=None,
         torch.cuda.reset_peak_memory_stats(mesh.device)
     _sync(mesh.device)
     torch.distributed.barrier()
-    launches0 = bp4_qc.launches
+    launches0 = obs.counter("k1.launches")
     t0 = time.perf_counter()
     counts = [tuple(int(c) for c in step(base.manual_seed(s), p)) for s in seeds]
     _sync(mesh.device)
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda" else None
-    return {"counts": counts, "seconds": seconds, "k1_launches": bp4_qc.launches - launches0,
+    return {"counts": counts, "seconds": seconds, "k1_launches": obs.counter("k1.launches") - launches0,
             "backend": mesh.backend, "data_index": mesh.data_index, "peak_bytes": peak}
 
 

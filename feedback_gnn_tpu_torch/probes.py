@@ -34,8 +34,9 @@ a grid-stride pass over float4s, one instance for each form and mode.  The
 launch plans (``_pass_plan``, ``_loop_plan``, ``_phi_plan``) are chosen
 here.  A wrapper given CUDA
 tensors launches its kernel (or raises); given CPU tensors it takes its
-plain version, ``<wrapper>_plain``.  Each launch adds one to
-``launches[<wrapper>]``; the plain versions do not count.  Indices are
+plain version, ``<wrapper>_plain``.  Each launch adds one to the counter
+``probe.<wrapper>.launches`` (``obs.counter``); the plain versions do not
+count.  Indices are
 int32 and lie in [0, length of the gathered axis).
 
     python -m feedback_gnn_tpu_torch.probes [--device cpu]
@@ -56,7 +57,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import obs, resolve_device
 from .decoders.bp4_qc import SMEM_LIMIT
 from .decoders.cn_update import softplus
 
@@ -64,7 +65,7 @@ __all__ = [
     "take_rows", "take_lanes", "take_along_lanes", "roll_rows", "circulant_copy",
     "phi_softplus_expm1", "gather_loop", "take_along_rows", "index_rows", "phi_log_tanh",
     "phi_exp_log1p", "take_along_loop", "roll_loop", "Probe", "probe_inputs", "probe_cases",
-    "main", "launches", "phi_last_launch",
+    "main", "phi_last_launch",
 ]
 
 # the scripts' shapes and constants
@@ -104,8 +105,6 @@ WRAPPERS = (
     "phi_softplus_expm1", "gather_loop", "take_along_rows", "index_rows", "phi_log_tanh",
     "phi_exp_log1p", "take_along_loop", "roll_loop",
 )
-# kernel launches since the last reset, per wrapper
-launches = dict.fromkeys(WRAPPERS, 0)
 
 
 # ---------------------------------------------------------------- checks
@@ -310,7 +309,7 @@ def _launch_gather(name, x, idx, axis, iters=1, scale=1.0, plan=None):
             ctypes.c_float(scale), *args, _stream(x.device),
         )
     _raise_on(lib, err, name)
-    launches[name] += 1
+    obs.count(f"probe.{name}.launches")
     return out
 
 
@@ -331,7 +330,7 @@ def _launch_shift(name, x, shift, length, iters=1, scale=1.0, plan=None):
             ctypes.c_float(scale), vec, rpt, cluster, threads, blocks, smem, _stream(x.device),
         )
     _raise_on(lib, err, name)
-    launches[name] += 1
+    obs.count(f"probe.{name}.launches")
     return out
 
 
@@ -350,7 +349,7 @@ def _launch_phi(name, x, form, fast, plan=None):
                                        int(fast), int(plan.vec), plan.per_thread, plan.threads, plan.grid,
                                        _stream(x.device))
     _raise_on(lib, err, name)
-    launches[name] += 1
+    obs.count(f"probe.{name}.launches")
     return out
 
 

@@ -30,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 
 __all__ = ["SimResult", "sim_ler", "batch_seed"]
 
@@ -161,6 +161,11 @@ def sim_ler(
         print(header)
         print("-" * len(header))
 
+    # spans between two batches (tracing on only): ``sim.between_batches``
+    # from the end of one step's enqueue to the next step's call (its device
+    # time: the stream's idle stretch), ``sim.host_gap`` from the first count
+    # on the host to that call (the host's work between the batches)
+    between = host_gap = obs.NULL
     try:
         for i in range(npts):
             if state["status"][i] != 0:
@@ -168,10 +173,14 @@ def sim_ler(
             t0 = time.perf_counter() - state["runtime"][i]
             for it in range(int(state["iters"][i]), int(max_mc_iter)):
                 generator.manual_seed(batch_seed(seed, process, i, it))
+                host_gap.close()
+                between.close()
                 out = step_fn(generator, ps[i])
+                between = obs.begin("sim.between_batches")
+                state["flagged"][i] += int(out[0])
+                host_gap = obs.begin("sim.host_gap")
                 if len(out) > 2:
                     state["overflow"][i] += int(out[2])
-                state["flagged"][i] += int(out[0])
                 state["logical"][i] += int(out[1])
                 state["blocks"][i] += batch_size
                 state["iters"][i] = it + 1
@@ -216,6 +225,8 @@ def sim_ler(
         if verbose:
             print("\nsimulation interrupted — returning partial results")
     finally:
+        host_gap.close()
+        between.close()
         save_ckpt()
 
     blocks = np.maximum(state["blocks"], 1)

@@ -35,9 +35,10 @@ from feedback_gnn_tpu.decoders.bp4 import bp4_decode as j_bp4_decode
 from test_bp4_parity import assert_llr_parity, load_case
 
 import feedback_gnn_tpu_torch.codes as tc
+from feedback_gnn_tpu_torch import obs
 from feedback_gnn_tpu_torch.codes.graph import build_graph
 from feedback_gnn_tpu_torch.codes.qc import detect_qc_structure
-from feedback_gnn_tpu_torch.decoders import CN_UPDATES, bp2_decode, bp2_qc, bp4_decode, cn_update_phi
+from feedback_gnn_tpu_torch.decoders import CN_UPDATES, bp2_decode, bp4_decode, cn_update_phi
 from feedback_gnn_tpu_torch.decoders.bp2_qc import bp2_qc_logits, bp2_qc_logits_plain
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -270,9 +271,9 @@ def test_bp2_qc_plain_matches_jax_kernel(name, cn_type):
     assert spec is not None and spec.groups == jspec.groups
     ref = j_bp2_qc_logits(jspec, jnp.asarray(llr), jnp.asarray(syn), num_iter=8, cn_type=cn_type,
                           normalization_factor=0.9, batch_tile=32, interpret=True)
-    before = bp2_qc.launches
+    before = obs.counter("k2.launches")
     out = bp2_qc_logits(spec, torch.as_tensor(llr), torch.as_tensor(syn), 8, cn_type, 0.9)
-    assert bp2_qc.launches == before  # the plain version launches no kernel
+    assert obs.counter("k2.launches") == before  # the plain version launches no kernel
     assert out.shape == (pcm.shape[1], 32)
     _assert_logits(out.numpy(), ref)
 

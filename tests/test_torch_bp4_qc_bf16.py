@@ -38,6 +38,7 @@ from feedback_gnn_tpu.decoders.bp4_qc import bp4_decode_qc as j_bp4_decode_qc
 from feedback_gnn_tpu.decoders.bp4_qc import bp4_qc_marginals as j_bp4_qc_marginals
 
 import feedback_gnn_tpu_torch.codes as tc
+from feedback_gnn_tpu_torch import obs
 from feedback_gnn_tpu_torch.decoders import bp4_qc
 from feedback_gnn_tpu_torch.decoders.bp4 import hard_decision
 from feedback_gnn_tpu_torch.decoders.bp4_qc import bp4_decode_qc
@@ -157,9 +158,9 @@ def check_carry(name, iters, cn_type, phi_impl, out, carried):
 @pytest.mark.parametrize("cn_type,phi_impl", RULES)
 @pytest.mark.parametrize("name", sorted(CODES))
 def test_plain_carry_matches_jax(name, cn_type, phi_impl, iters):
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     out, carried = _port(name, iters, cn_type, phi_impl)
-    assert bp4_qc.launches == before  # CPU tensors: the plain version, no kernel
+    assert obs.counter("k1.launches") == before  # CPU tensors: the plain version, no kernel
     assert all(o.shape == (_pair(name)[1].N, B) and o.dtype == torch.float32 for o in out)
     # the carried messages are bfloat16 values in float32 slots
     assert all(torch.equal(m, m.to(torch.bfloat16).float()) for m in carried)

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import feedback_gnn_tpu_torch.codes as tc
-from feedback_gnn_tpu_torch import probes
+from feedback_gnn_tpu_torch import obs, probes
 from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
 from test_bp4_parity import assert_llr_parity, load_case
 from test_torch_qc_golden import QC_GOLDENS, check_qc_golden
@@ -60,9 +60,9 @@ def test_bp4_qc_kernel_matches_plain(card, code, cn_type, phi_impl):
     llr = torch.randn((3, qc.n, b), generator=g, device=card) * 2.0
     sx = torch.randint(0, 2, (qc.qx.mb * qc.l, b), generator=g, device=card).float()
     sz = torch.randint(0, 2, (qc.qz.mb * qc.l, b), generator=g, device=card).float()
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     out = bp4_qc.bp4_qc_marginals(qc, llr, sx, sz, 16, cn_type, 0.9, phi_impl=phi_impl)
-    assert bp4_qc.launches == before + 1
+    assert obs.counter("k1.launches") == before + 1
     ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, 16, cn_type, 0.9, phi_impl=phi_impl)
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
@@ -80,9 +80,9 @@ def test_bp2_qc_kernel_matches_plain(card, code, cn_type):
     n, m = spec.nb * spec.l, spec.mb * spec.l
     llr = torch.randn((n, b), generator=g, device=card) * 3.0
     syn = torch.randint(0, 2, (m, b), generator=g, device=card).float()
-    before = bp2_qc.launches
+    before = obs.counter("k2.launches")
     out = bp2_qc.bp2_qc_logits(spec, llr, syn, 20, cn_type, 0.8)
-    assert bp2_qc.launches == before + 1
+    assert obs.counter("k2.launches") == before + 1
     ref = bp2_qc.bp2_qc_logits_plain(spec, llr, syn, 20, cn_type, 0.8)
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (n, b)
@@ -104,9 +104,9 @@ def test_bp2_qc_kernel_matches_tf_golden(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", QC_GOLDENS)
 def test_bp4_qc_kernel_matches_tf_golden(card, case):
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     check_qc_golden(case, card)
-    assert bp4_qc.launches == before + 1
+    assert obs.counter("k1.launches") == before + 1
 
 
 def _probe_cases(device):
@@ -117,9 +117,9 @@ def _probe_cases(device):
 @pytest.mark.parametrize("key", sorted(_probe_cases("cpu")))
 def test_probe_kernel_matches_plain(card, key):
     p = _probe_cases(card)[key]
-    before = probes.launches[p.name]
+    before = obs.counter(f"probe.{p.name}.launches")
     out = p.fn(*p.args)
-    assert probes.launches[p.name] == before + 1
+    assert obs.counter(f"probe.{p.name}.launches") == before + 1
     ref = p.plain(*p.args)
     torch.cuda.synchronize()
     assert out.is_cuda
@@ -254,10 +254,10 @@ def test_probe_phi_fast_mode(card, fn):
     """The fast transcendentals run and stay near phi; their error is
     reported by chip_smoke.py, not held to a tolerance."""
     x = probes.probe_inputs(card)["x_sub"]
-    before = probes.launches[fn.__name__]
+    before = obs.counter(f"probe.{fn.__name__}.launches")
     out = fn(x, fast=True)
     torch.cuda.synchronize()
-    assert probes.launches[fn.__name__] == before + 1
+    assert obs.counter(f"probe.{fn.__name__}.launches") == before + 1
     assert bool(torch.isfinite(out).all())
     assert float((out.double() - probes.phi_reference(x)).abs().max()) < 1.0
 
@@ -346,9 +346,9 @@ def _qc_inputs(qc, b, card, seed):
 
 def _k1_exact(qc, llr, sx, sz, iters, plan, cases, msg_dtype="float32"):
     for cn_type, phi_impl in cases:
-        before = bp4_qc.launches
+        before = obs.counter("k1.launches")
         out = bp4_qc._launch_kernel(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl, plan, msg_dtype)
-        assert bp4_qc.launches == before + 1
+        assert obs.counter("k1.launches") == before + 1
         ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, iters, cn_type, 0.9, phi_impl=phi_impl,
                                             msg_dtype=msg_dtype)
         torch.cuda.synchronize()
@@ -396,9 +396,9 @@ def test_bp4_qc_bf16_carry_through_the_wrapper(card):
     version's bits, and other bits than the float32 carry's."""
     qc = tc.qc_pair_from_code(tc.ghp_882_24())
     llr, sx, sz = _qc_inputs(qc, 256, card, 14)
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     out = bp4_qc.bp4_qc_marginals(qc, llr, sx, sz, 16, msg_dtype="bfloat16")
-    assert bp4_qc.launches == before + 1
+    assert obs.counter("k1.launches") == before + 1
     ref = bp4_qc.bp4_qc_marginals_plain(qc, llr, sx, sz, 16, msg_dtype="bfloat16")
     f32 = bp4_qc.bp4_qc_marginals(qc, llr, sx, sz, 16)
     torch.cuda.synchronize()
@@ -423,9 +423,9 @@ def test_bp4_qc_bf16_carry_bit_exact_large(card, phi_impl):
 
 def _k2_exact(spec, llr, syn, iters, plan, cn_types):
     for cn_type in cn_types:
-        before = bp2_qc.launches
+        before = obs.counter("k2.launches")
         out = bp2_qc._launch_kernel(spec, llr, syn, iters, cn_type, 0.8, plan)
-        assert bp2_qc.launches == before + 1
+        assert obs.counter("k2.launches") == before + 1
         ref = bp2_qc.bp2_qc_logits_plain(spec, llr, syn, iters, cn_type, 0.8)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), (cn_type, plan, float((out - ref).abs().max()))
@@ -550,9 +550,9 @@ def test_k1_miner_matches_plain(card, n882_training, monkeypatch, kind, batch, l
     (graph, qc, _), _ = n882_training
     miner = _miner(kind, graph, qc, card)
     nx, nz = miner.sample(torch.Generator(device=card).manual_seed(21), 40, batch)
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     out = miner.body(nx, nz)
-    assert bp4_qc.launches == before + launches
+    assert obs.counter("k1.launches") == before + launches
     _plain_k1(monkeypatch)
     ref = miner.body(nx, nz)
     torch.cuda.synchronize()
@@ -707,3 +707,42 @@ def test_gnn_bp4_loss_on_card_matches_cpu(card, gnn_bp4_n882):
     for key, g in on_cpu[1].items():
         limit = _limit(1e-3, (card_moved[1][key], on_card[1][key]), (cpu_moved[1][key], g))
         assert _rel_l2(on_card[1][key], g) <= limit, key
+
+
+# ---- the program's spans and counters ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_k1_shape_record_matches_the_benchmark_recorder(card, n882_training):
+    """The program's record of K1's launch shapes (obs's k1.launches keys)
+    equals, batch by batch, what the benchmark's Recorder sees at K1's
+    entry, on the compacted [[882,24]] cascade of the mc_p08 cell; the
+    spans' in-program K1 time is positive."""
+    from collections import Counter
+
+    from benchmark.mc import Recorder
+    from feedback_gnn_tpu_torch.decoders.cascade import CascadeConfig, sandwich_eval_step
+
+    (graph, qc, params), _ = n882_training
+    cfg = CascadeConfig(num_rounds=3, compact_fraction=0.4, stage1_prepass=12, round_fraction=0.08)
+    rec = Recorder()
+    rec.install({})
+    try:
+        step = rec.wrap(lambda gen, p: sandwich_eval_step(graph, [params], cfg, gen, p, 4096, qc=qc,
+                                                           return_overflow=True))
+        rec.reset([], None)
+        gen = torch.Generator(device=card)
+        obs.enable()
+        for i in range(3):
+            obs.reset()
+            int(step(gen.manual_seed(i), 0.08)[0])
+            snap = obs.snapshot()
+            seen = Counter((r["batch"], r["iters"], r["cn_type"], r["phi_impl"], r["msg_dtype"])
+                           for r in rec.k1[i])
+            assert snap["keys"]["k1.launches"] == seen and sum(seen.values()) == 2 + cfg.num_rounds
+            assert snap["spans"]["k1.kernel"]["count"] == 2 + cfg.num_rounds
+            assert 0 < snap["spans"]["k1.kernel"]["device_s"] < snap["spans"]["cascade.bp"]["device_s"]
+    finally:
+        obs.enable(False)
+        obs.reset()
+        rec.uninstall()

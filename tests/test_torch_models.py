@@ -22,9 +22,8 @@ from feedback_gnn_tpu.codes.graph import build_graph as j_build_graph
 from feedback_gnn_tpu.codes.qc import detect_qc_structure as j_detect_qc
 
 import feedback_gnn_tpu_torch.codes as tc
-from feedback_gnn_tpu_torch import models
+from feedback_gnn_tpu_torch import models, obs
 from feedback_gnn_tpu_torch.channels import binary_source, bsc_sample, bsc_sample_ste, depolarizing_probs
-from feedback_gnn_tpu_torch.decoders import bp2_qc
 from feedback_gnn_tpu_torch.sim import compute_bler, count_block_errors, count_errors, llr2mi
 
 GB48 = (24, [0, 2, 8, 15], [0, 2, 12, 17])
@@ -47,11 +46,11 @@ def test_bp2_bsc_counts_match_jax(gb48, monkeypatch, backend, accounting):
     spec = tc.detect_qc_structure(hx, 24) if backend == "qc" else None
     ref = jmodels.bp2_bsc_eval_step(j_build_graph(hx), hx, lx, jax.random.PRNGKey(0), p, b,
                                     num_iter=8, qc_spec=jspec, accounting=accounting)
-    before = bp2_qc.launches
+    before = obs.counter("k2.launches")
     out = models.bp2_bsc_count(tc.build_graph(hx).to("cpu"), torch.as_tensor(hx), lx,
                                torch.as_tensor(noise), p, num_iter=8, qc_spec=spec,
                                accounting=accounting)
-    assert bp2_qc.launches == before
+    assert obs.counter("k2.launches") == before
     assert (int(out[0]), int(out[1])) == (int(ref[0]), int(ref[1]))
     assert int(out[0]) > 0  # the case exercises failures
 

@@ -29,11 +29,17 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from feedback_gnn_tpu_torch import probes
+from feedback_gnn_tpu_torch import obs, probes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("probe_pallas", "probe_pallas2")
 PHI_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def probe_launches():
+    """Each probe wrapper's kernel launches so far."""
+    return {name: obs.counter(f"probe.{name}.launches") for name in probes.WRAPPERS}
+
 
 # Pallas kernel -> the port's plain version (with its default arguments,
 # the scripts' constants)
@@ -96,9 +102,9 @@ def test_every_pallas_probe_ran(recorded):
 @pytest.mark.parametrize("kernel", sorted(PORT))
 def test_plain_matches_pallas_probe(recorded, kernel):
     inputs, ref = recorded[kernel]
-    before = dict(probes.launches)
+    before = probe_launches()
     out = PORT[kernel](*(torch.from_numpy(a) for a in inputs)).numpy()
-    assert probes.launches == before
+    assert probe_launches() == before
     assert out.shape == ref.shape and out.dtype == ref.dtype
     if kernel in PHI:
         np.testing.assert_allclose(out, ref, **PHI_TOL)
@@ -180,9 +186,9 @@ def test_probe_inputs_are_the_scripts(recorded):
 def test_wrapper_takes_plain_on_cpu(probe):
     """On CPU tensors each wrapper returns its plain version's result and
     launches nothing."""
-    before = dict(probes.launches)
+    before = probe_launches()
     out = probe.fn(*probe.args)
-    assert probes.launches == before
+    assert probe_launches() == before
     assert probes.compare(probe, out, probe.plain(*probe.args)) == 0.0
 
 

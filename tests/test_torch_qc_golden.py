@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from feedback_gnn_tpu_torch.codes import QCPair, detect_qc_structure
+from feedback_gnn_tpu_torch import obs
 from feedback_gnn_tpu_torch.decoders import bp4_qc
 from test_bp4_parity import assert_llr_parity, load_case
 
@@ -39,6 +40,6 @@ def check_qc_golden(case, device):
 
 @pytest.mark.parametrize("case", QC_GOLDENS)
 def test_qc_plain_matches_tf_golden(case):
-    before = bp4_qc.launches
+    before = obs.counter("k1.launches")
     check_qc_golden(case, torch.device("cpu"))
-    assert bp4_qc.launches == before  # CPU tensors take the plain version
+    assert obs.counter("k1.launches") == before  # CPU tensors take the plain version
