@@ -5,9 +5,11 @@
 
 Builds the port's CUDA kernels from feedback_gnn_tpu_torch/csrc with one
 nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode; the three
-probe kernels of csrc/probes.cu), holds each against its plain PyTorch
-version on the card, and drives the paths that run them or their
-neighbours: the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
+probe kernels of csrc/probes.cu; the fused feedback-GNN step of
+csrc/gnn_feedback.cu), holds each against its plain PyTorch version on
+the card (the GNN step also timed beside it, with its host cost a call
+and its issue bounds), and drives the paths that run them or their
+neighbours (every cascade counting one fused GNN step a round): the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
 and the [[1270,28]] compacted workload of cli/bench.py (K1); the evaluate
 CLI (cli/evaluate.py's run(), [[882,24]] at p=0.08 to 100 logical errors,
 K1); the rescue stage (K1's tf and accurate instances); the cascade on the
@@ -190,6 +192,23 @@ LOOP_SMEM_BYTES_WITH_INDEX = {"gather_loop": 12, "take_along_loop": 12}
 PROBE_BEFORE_US = {"k1": 3.11, "k2": 1.91, "k2b": 1.95, "k3": 3.08, "k4": 1.53, "k5": 3.23, "k6": 43.78,
                    "ka": 3.31, "kb": 3.22, "kc": 2.57, "kd": 2.95, "ke": 45.40, "kf": 38.64}
 
+# The fused feedback-GNN step (csrc/gnn_feedback.cu) against its plain
+# version: the benchmark's round shapes ([[1270,28]] at B=1024, [[882,24]]
+# at 1664) and the cascade miner's ([[882,24]] at 8192), the shipped
+# weights, the cascade's input layout; every row, pad rows included,
+# within |fused - plain| / max(|plain|, 1) <= tol.  Times: the kernel in a
+# CUDA graph of `reps` calls, the plain version by events over
+# `plain_reps`; host microseconds a call over `host_calls` (fused) and
+# `plain_host_calls` (plain, ~60 launches each) calls queued without a
+# sync.  Two issue bounds, both lane-instructions a (VN, sample) pair over
+# H100_ISSUE: the function's (its FMAs and its tanhf, each tanhf counted
+# as GNN_TANHF_INSTRUCTIONS: two MUFU and the FMA, compare and select
+# around them, an assumed count) and the built kernel's SASS (each loop
+# counted once a trip).
+GNN = dict(shapes=[("n1270", 1024), ("n882", 1664), ("n882", 8192)], tol=1e-5, reps=20, plain_reps=5,
+           host_calls=100, plain_host_calls=10, row=("n1270", 1024))
+GNN_TANHF_INSTRUCTIONS = 16
+
 # Training on [[882,24]] at full width (the shipped GNN's 20 message dims
 # and 40 hidden units, the published BP4-64 / GNN + BP4-16 schedule, B=100):
 # the K1 miners against their plain versions at weight 40 (the easy miner
@@ -324,9 +343,15 @@ def reset_counts():
 
 
 def read_counts():
+    """Launches since the last reset_counts: K1, K2, the fused GNN step
+    (GNN) and the GNN steps the card ran on the plain version (GNN_plain:
+    an edge shard or a gradient), and each probe wrapper."""
     from feedback_gnn_tpu_torch import obs, probes
 
+    gnn = obs.snapshot()["keys"].get("gnn.launches", {})
     return {"K1": obs.counter("k1.launches"), "K2": obs.counter("k2.launches"),
+            "GNN": sum(n for (path, _), n in gnn.items() if path == "fused"),
+            "GNN_plain": sum(n for (path, _), n in gnn.items() if path == "plain"),
             **{name: obs.counter(f"probe.{name}.launches") for name in probes.WRAPPERS}}
 
 
@@ -617,6 +642,134 @@ def time_carry(codes, shapes, registers, device, card):
     return rows
 
 
+def gnn_inputs(graph, batch, device, seed):
+    """The cascade's GNN inputs: marginals [3, n_pad, B], check logits on
+    every padded row, int32 syndromes [m, B]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    gx, gz = graph.gx, graph.gz
+    return (torch.randn((3, gx.n_pad, batch), generator=g, device=device) * 3.0,
+            torch.randn((gx.c_pad, batch), generator=g, device=device) * 2.0,
+            torch.randn((gz.c_pad, batch), generator=g, device=device) * 2.0,
+            torch.randint(0, 2, (gx.num_cn, batch), generator=g, device=device, dtype=torch.int32),
+            torch.randint(0, 2, (gz.num_cn, batch), generator=g, device=device, dtype=torch.int32))
+
+
+def gnn_function_counts(hidden, msg, dv):
+    """(FMAs, tanhf) of one (VN, sample) pair of the step at VN degree dv on
+    both sides: per side the hidden pre-activation (3 a unit), each edge's
+    shift and masked sum (2 a unit and edge) and tanhf, layer 1 (hidden x
+    msg) and the mean; the embed MLP (2 msg + 3 inputs a unit) and its
+    tanhf; the output layer (3 a unit)."""
+    side = 3 * hidden + 2 * hidden * dv + hidden * msg + msg
+    return 2 * side + hidden * (2 * msg + 3) + 3 * hidden, 2 * hidden * dv + hidden
+
+
+def gnn_sass_counts(functions):
+    """{(hidden, msg, slots): {opcode: SASS instructions a (VN, sample)
+    pair}} of the fused step's instances in the built library
+    (``sass_functions``): each loop (a backward branch and its target)
+    counted once a trip, hidden / 2 trips for the loops over hidden units
+    (``#pragma unroll 2``: the loops that hold MUFU), ceil(packed float4s /
+    128) for the weights' copy into shared memory.  Opcodes without their
+    modifiers (FFMA, MUFU, LDS, ...)."""
+    from feedback_gnn_tpu_torch._build import load_kernels
+
+    out = {}
+    for name, code in functions or ():
+        m = re.search(r"gnn_feedback_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        hidden, msg, slots = (int(v) for v in m.groups())
+        floats = load_kernels().fgt_gnn_feedback_packed_floats(hidden, msg, slots)
+        ops = {}
+        for _, op, _ in code:
+            ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+        for addr, _, back in code:
+            if back is None:
+                continue
+            body = [op.split(".")[0] for a, op, _ in code if back <= a <= addr]
+            trips = hidden // 2 if "MUFU" in body else -(-floats // 4 // 128)
+            for op in body:
+                ops[op] += trips - 1
+        out[(hidden, msg, slots)] = ops
+    return out
+
+
+def host_us(fn, calls):
+    """Host microseconds a call of fn(), ``calls`` calls queued without a
+    sync (the card's work left out, as long as the launch queue holds it)."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def run_gnn(codes, device, card, registers, functions, G=GNN):
+    """The fused feedback-GNN step against its plain version at G's
+    shapes: the widest gap within G["tol"] on every row, two calls bit for
+    bit, one ``fused`` launch counted a call; the kernel's and the plain
+    version's times, host microseconds a call, occupancy, registers and
+    spills, the SASS a pair by opcode and both issue bounds.  Returns the
+    kernels line's row at G["row"]'s shape."""
+    import ctypes
+
+    from feedback_gnn_tpu_torch._build import load_kernels
+    from feedback_gnn_tpu_torch.decoders import gnn_feedback as gf
+
+    for (name, args), (regs, spill) in sorted(registers.items()):
+        if "gnn_" in name:
+            print(f"GNN ptxas {name}: {regs} registers, spill stores {spill} B")
+    sass = gnn_sass_counts(functions)
+    worst, rows = 0.0, {}
+    for code, batch in G["shapes"]:
+        graph, _, params = codes[code]
+        args = gnn_inputs(graph, batch, device, seed=batch)
+        label = f"GNN {code} B={batch}"
+        with torch.no_grad():
+            reset_counts()
+            out = gf.feedback_gnn_apply(params, graph, *args)
+            again = gf.feedback_gnn_apply(params, graph, *args)
+            counts = read_counts()
+            ref = gf.feedback_gnn_apply_plain(params, graph, *args)
+            gap = float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max())
+            same = torch.equal(out, again)
+            del out, again, ref
+            k_ms = graph_ms(lambda: gf.feedback_gnn_apply(params, graph, *args), G["reps"])
+            p_ms = time_ms(lambda: gf.feedback_gnn_apply_plain(params, graph, *args), G["plain_reps"])
+            k_host = host_us(lambda: gf.feedback_gnn_apply(params, graph, *args), G["host_calls"])
+            p_host = host_us(lambda: gf.feedback_gnn_apply_plain(params, graph, *args), G["plain_host_calls"])
+        instance, _ = gf._fused_instance(params, graph, *args)
+        occ = (ctypes.c_int * 3)()
+        err = load_kernels().fgt_gnn_feedback_occupancy(*instance, occ)
+        pairs = graph.gx.num_vn * batch
+        fmas, tanhs = gnn_function_counts(instance[0], instance[1], max(graph.gx.max_vn_deg, graph.gz.max_vn_deg))
+        f_ms = (fmas + tanhs * GNN_TANHF_INSTRUCTIONS) * pairs / H100_ISSUE * 1e3
+        ops = sass.get(instance, {})
+        per_pair = sum(ops.values())
+        s_ms = per_pair * pairs / H100_ISSUE * 1e3 if per_pair else None
+        top = ", ".join(f"{op} {n}" for op, n in sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+        print(f"{label}: instance {instance}, occupancy (blocks an SM, registers, local B) "
+              f"{list(occ) if err == 0 else f'error {err}'}; gap {gap:.3e} (limit {G['tol']}), two calls "
+              f"{'equal' if same else 'DIFFERENT'}, launches={counts}", flush=True)
+        print(f"{label}: kernel {k_ms:.4f} ms (in a CUDA graph), plain {p_ms:.4f} ms ({p_ms / k_ms:.2f}x); "
+              f"host {k_host:.2f} us a call (plain {p_host:.2f}); function {fmas} FMA + {tanhs} tanhf a pair, "
+              f"bound {f_ms:.4f} ms ({f_ms / k_ms:.1%} of the kernel's time); SASS {per_pair} a pair, bound "
+              + (f"{s_ms:.4f} ms ({s_ms / k_ms:.1%})" if s_ms else "not counted") + f"; by opcode: {top} on {card}",
+              flush=True)
+        if gap > G["tol"] or not same:
+            raise AssertionError(f"{label}: the fused step is {gap:.3e} from the plain version "
+                                 f"(limit {G['tol']}), two calls {'equal' if same else 'differ'}")
+        if counts != expected_counts(GNN=2):
+            raise AssertionError(f"{label}: launches {counts}, expected GNN=2")
+        worst = max(worst, gap)
+        rows[(code, batch)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=s_ms, function_bound_ms=f_ms,
+                                   host_us=k_host, plain_host_us=p_host, sass_a_pair=per_pair)
+    return {"max_rel_gap": worst, **rows[G["row"]]}
+
+
 def compare_kernel(codes, device):
     """K1 against its plain version on the card, every CN rule and phi form."""
     from feedback_gnn_tpu_torch.decoders.bp4_qc import bp4_qc_marginals, bp4_qc_marginals_plain
@@ -828,7 +981,8 @@ def run_carry(codes, fp32_rates, device, card, env=None):
           f"syndromes/s in this run ({ratio:.4f}x) on {card}")
     if overflow != 0:
         raise AssertionError(f"compaction overflow {overflow} with the bfloat16 carry")
-    if launched != expected_counts(K1=len(counts) * (2 + settings.cfg.num_rounds)):
+    if launched != expected_counts(K1=len(counts) * (2 + settings.cfg.num_rounds),
+                                   GNN=len(counts) * settings.cfg.num_rounds):
         raise AssertionError(f"kernel launches {launched} in {len(counts)} bfloat16 bench steps")
 
     graph, qc, params = codes["n882"]
@@ -846,7 +1000,7 @@ def run_carry(codes, fp32_rates, device, card, env=None):
     print(f"main path bfloat16 carry [[882,24]] nG=3 p={LER_P}: flagged={flagged} logical={logical}/{samples} "
           f"LER={rate:.5f}, {sig:.2f} sigma from the TF original's {LER_REF} (printed only) "
           f"launches={launched}")
-    if launched != expected_counts(K1=LER_STEPS * (1 + 3)):
+    if launched != expected_counts(K1=LER_STEPS * (1 + 3), GNN=LER_STEPS * 3):
         raise AssertionError(f"kernel launches {launched} on the main path with the carry")
     return launched["K1"]
 
@@ -1280,7 +1434,7 @@ def run_evaluate(codes, device, card, E=EVALUATE):
         raise AssertionError(f"evaluate: compaction overflow {int(res.overflow[0])}")
     if sig_tf >= LER_SIGMAS:
         raise AssertionError(f"evaluate: LER {ler} outside {LER_SIGMAS} sigma of {E['ref_tf']}")
-    if counts != expected_counts(K1=steps * (2 + E["rounds"])):  # prepass, subset, rounds
+    if counts != expected_counts(K1=steps * (2 + E["rounds"]), GNN=steps * E["rounds"]):  # prepass, subset, rounds
         raise AssertionError(f"kernel launches {counts} in {steps} evaluate batches")
 
 
@@ -1312,9 +1466,9 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
         print(f"rescue {rescue} (capacity {_capacity(fraction, R['batch'], tile)}) p={R['p']} "
               f"B={R['batch']}: flagged={flagged} logical={logical} overflow={overflow}, {ms:.3f} ms, "
               f"launches={counts} on {card}")
-        if counts != expected_counts(K1=(1 + rounds) * (1 + stages)):
+        if counts != expected_counts(K1=(1 + rounds) * (1 + stages), GNN=rounds * (1 + stages)):
             raise AssertionError(f"rescue {rescue}: kernel launches {counts}, expected K1="
-                                 f"{(1 + rounds) * (1 + stages)}")
+                                 f"{(1 + rounds) * (1 + stages)}, GNN={rounds * (1 + stages)}")
         rows[(rescue, tile)] = (flagged, overflow, ms)
     f_none, f_tf, f_both = (rows[(k, 128)][0] for k in (None, "tf", "tf,accurate"))
     under = rows[("tf", 1)]
@@ -1330,7 +1484,7 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
 def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
     """One step of the evaluate step on the gather backend (no
     --qc-kernel): LER within LER_SIGMAS of the main path's reference, no
-    kernel launched."""
+    BP kernel launched, the fused GNN step once a round."""
     from feedback_gnn_tpu_torch.cli import evaluate
     from feedback_gnn_tpu_torch.config import config_from_args, make_eval_parser
 
@@ -1350,8 +1504,8 @@ def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
           f"launches={counts} on {card}")
     if sig >= LER_SIGMAS:
         raise AssertionError(f"gather_cascade: LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
-    if counts != expected_counts():
-        raise AssertionError(f"gather_cascade launched kernels: {counts}")
+    if counts != expected_counts(GNN=rounds):
+        raise AssertionError(f"gather_cascade launched kernels: {counts}, expected GNN={rounds}")
 
 
 def run_osd(bp_rates, device, card, specs=None):
@@ -1424,10 +1578,10 @@ def plain_k1():
         bp4_qc.bp4_qc_marginals = wrapper
 
 
-def check_miner(label, make, batch, launches, device, card, T=TRAIN):
+def check_miner(label, make, batch, launches, gnn, device, card, T=TRAIN):
     """A K1 miner (compacted) against itself on K1's plain version, on the
     same injected noise: the same kept count and columns, bit for bit, and
-    ``launches`` K1 launches.  Prints how far its flagged set agrees with
+    ``launches`` K1 launches and ``gnn`` fused GNN steps.  Prints how far its flagged set agrees with
     the gather miner's (phi's tanh form in K1, expm1 in the gather path)."""
     gen = torch.Generator(device=device).manual_seed(T["seed"])
     miner = make(compact_cap=T["cap"], qc=True)
@@ -1448,8 +1602,8 @@ def check_miner(label, make, batch, launches, device, card, T=TRAIN):
           f"agreement {agree:.5f} on {card}", flush=True)
     if not same:
         raise AssertionError(f"the {label} miner on K1 differs from its plain version")
-    if counts != expected_counts(K1=launches):
-        raise AssertionError(f"{label} miner: kernel launches {counts}, expected K1={launches}")
+    if counts != expected_counts(K1=launches, GNN=gnn):
+        raise AssertionError(f"{label} miner: kernel launches {counts}, expected K1={launches}, GNN={gnn}")
     return out
 
 
@@ -1529,8 +1683,8 @@ def run_train(codes, code882, device, card, T=TRAIN):
                                           compact_cap=compact_cap, qc=codes["n882"][1] if qc else None)
 
     # 1. the K1 miners against their plain versions, and their rates
-    check_miner("easy", easy, T["easy_batch"], 1, device, card)
-    check_miner("hard", hard, T["hard_batch"], 2, device, card)
+    check_miner("easy", easy, T["easy_batch"], 1, 0, device, card)
+    check_miner("hard", hard, T["hard_batch"], 2, 1, device, card)
     rates = {name: mining_rate(name, make(compact_cap=T["cap"], qc=True), device, card)
              for name, make in (("easy", easy), ("hard", hard))}
     mined = rates["easy"][1]
@@ -1630,8 +1784,8 @@ def run_train(codes, code882, device, card, T=TRAIN):
           f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the {base / 1e9:.3f} GB held between "
           f"steps; autograd saved {len(saved)} tensors, {sum(saved.values()) / 1e9:.3f} GB); "
           f"launches={counts} on {card}")
-    if counts != expected_counts():
-        raise AssertionError(f"the train step launched kernels: {counts}")
+    if counts != expected_counts(GNN_plain=T["rate_steps"]):  # its GNN step carries a gradient
+        raise AssertionError(f"the train step launched kernels: {counts}, expected GNN_plain={T['rate_steps']}")
 
     # 5. checkpoints: npz and reference pickle round trips on the card
     with tempfile.TemporaryDirectory() as d:
@@ -1660,10 +1814,13 @@ def run_train(codes, code882, device, card, T=TRAIN):
         counts = read_counts()
         made = sorted(os.listdir(d))
         eval_batches = sum(sum(r["blocks"]) for r in res.values()) // eval_batch
-        # easy: one launch a batch; hard: two; evaluation: 1 + nG=3 a batch
+        # easy: one launch a batch; hard: two and a GNN step; evaluation (the trained
+        # and the shipped weights): 1 + nG=3 a batch and nG GNN steps; the train
+        # steps' GNN steps run plain (a gradient), one a step
         want = len(weights) * mine_batches * 3 + 4 * eval_batches
+        want_gnn = len(weights) * mine_batches + 3 * eval_batches
         print(f"train_from_scratch [[882,24]] {' '.join(CURRICULUM)}: {first_s:.2f} s, artifacts {made}, "
-              f"launches={counts} (K1 counted from the code {want})")
+              f"launches={counts} (K1 counted from the code {want}, GNN {want_gnn})")
         for name, r in res.items():
             print(f"  {name}: p={r['ps']} LER={r['ler']} errors={r['errors']} blocks={r['blocks']} "
                   f"overflow={r['overflow']}")
@@ -1671,21 +1828,25 @@ def run_train(codes, code882, device, card, T=TRAIN):
             raise AssertionError(f"train_from_scratch wrote {made}")
         if any(sum(r["overflow"]) for r in res.values()) or set(res) != {"trained", "shipped"}:
             raise AssertionError(f"train_from_scratch evaluation: {res}")
-        if counts != expected_counts(K1=want):
-            raise AssertionError(f"train_from_scratch: kernel launches {counts}, expected K1={want}")
+        if counts["GNN_plain"] < 1 or counts != expected_counts(K1=want, GNN=want_gnn,
+                                                               GNN_plain=counts["GNN_plain"]):
+            raise AssertionError(f"train_from_scratch: kernel launches {counts}, expected K1={want}, "
+                                 f"GNN={want_gnn}, GNN_plain at least 1")
         stamps = {a: os.stat(os.path.join(d, a)).st_mtime_ns for a in CURRICULUM_ARTIFACTS[:-1]}
         reset_counts()
         t1 = time.perf_counter()
         again = train_from_scratch.main(argv + ["--skip-shipped-eval"])
         again_s = time.perf_counter() - t1
         counts = read_counts()
-        want = 4 * sum(again["trained"]["blocks"]) // eval_batch
+        again_batches = sum(again["trained"]["blocks"]) // eval_batch
+        want = 4 * again_batches
         kept = {a: os.stat(os.path.join(d, a)).st_mtime_ns for a in CURRICULUM_ARTIFACTS[:-1]} == stamps
         print(f"train_from_scratch resumed: {again_s:.2f} s, artifacts "
               f"{'untouched' if kept else 'REWRITTEN'}, "
               f"trained LER {again['trained']['ler']} (first call {res['trained']['ler']}), launches={counts} "
               f"(the evaluation's {want})")
-        if not kept or counts != expected_counts(K1=want) or again["trained"] != res["trained"]:
+        if (not kept or counts != expected_counts(K1=want, GNN=3 * again_batches)
+                or again["trained"] != res["trained"]):
             raise AssertionError("train_from_scratch did not resume from its artifacts")
     return {"k1": (k_ms, p_ms, b_ms, b_by), "ms": step_ms}
 
@@ -1975,8 +2136,8 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     overflow = int(np.sum(res.overflow))
     print(f"cli/n1270.py {' '.join(G['n1270'])}: {batches} batches of {bs} in {secs:.2f} s, logical "
           f"{int(res.logical_errors[0])}, LER {float(res.ler[0]):.4e}, overflow {overflow}, launches={counts} "
-          f"(K1 counted from the code: {batches * 6})", flush=True)
-    if overflow != 0 or counts != expected_counts(K1=batches * 6) or batches < 1:
+          f"(K1 counted from the code: {batches * 6}, GNN {batches * 5})", flush=True)
+    if overflow != 0 or counts != expected_counts(K1=batches * 6, GNN=batches * 5) or batches < 1:
         raise AssertionError(f"cli/n1270.py: overflow {overflow}, launches {counts}")
 
     # K1 at cli/n1270.py's shapes: stage 1 (64 iterations) and a round (16)
@@ -2321,12 +2482,16 @@ def main() -> int:
     k2_err = compare_k2(k2_specs, device)
     phase("k2_vs_plain", t0)
 
+    t0 = time.perf_counter()
+    gnn_row = run_gnn(codes, device, card, registers, functions)
+    phase("gnn_vs_plain", t0)
+
     # 4. the main path
     t0 = time.perf_counter()
     reset_counts()
     fn, gen, flagged, logical, samples = run_main_path(device)
     counts = read_counts()
-    launches = counts["K1"]
+    launches, gnn_launches = counts["K1"], counts["GNN"]
     ler = logical / samples
     sigma = (LER_REF * (1 - LER_REF) / samples) ** 0.5
     print(f"main path [[882,24]] nG=3 p={LER_P}: flagged={flagged} logical={logical}/{samples} "
@@ -2334,8 +2499,8 @@ def main() -> int:
     if abs(ler - LER_REF) >= LER_SIGMAS * sigma:
         raise AssertionError(f"LER {ler} outside {LER_SIGMAS} sigma of {LER_REF}")
     same_counts("main path", logical, samples)
-    if counts != expected_counts(K1=LER_STEPS * (1 + 3)):
-        raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, K2=0")
+    if counts != expected_counts(K1=LER_STEPS * (1 + 3), GNN=LER_STEPS * 3):
+        raise AssertionError(f"kernel launches {counts}, expected K1={LER_STEPS * 4}, GNN={LER_STEPS * 3}")
     rates, step_ms, _ = timed_windows(fn, (gen, 0.08), 256)
     report_rate("main path throughput [[882,24]] B=256 p=0.08", rates, step_ms, card)
     phase("main_path", t0)
@@ -2363,7 +2528,7 @@ def main() -> int:
           f"{statistics.median(rates) / bench.BASELINE_SYNDROMES_PER_S:.2f}")
     if overflow != 0:
         raise AssertionError(f"compaction overflow {overflow}")
-    if launches_b != expected_counts(K1=len(counts) * (2 + cfg.num_rounds)):
+    if launches_b != expected_counts(K1=len(counts) * (2 + cfg.num_rounds), GNN=len(counts) * cfg.num_rounds):
         raise AssertionError(f"kernel launches {launches_b} in {len(counts)} bench steps")
     phase("bench", t0)
 
@@ -2611,6 +2776,23 @@ def main() -> int:
             "plain_ms": k2_plain_ms,
             "bound_ms": k2_b_ms,
             "bound_by": k2_b_by,
+            "library_ms": None,
+        },
+        {
+            "name": "feedback_gnn_apply",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/gnn_feedback.cu",
+            "replaces": "feedback_gnn_tpu/decoders/gnn_feedback.py:93",
+            "launches": gnn_launches,
+            "shape": "[[1270,28]] B=%d" % GNN["row"][1],
+            "max_rel_gap": gnn_row["max_rel_gap"],
+            "ms": gnn_row["ms"],
+            "plain_ms": gnn_row["plain_ms"],
+            "bound_ms": gnn_row["bound_ms"],
+            "bound_by": "issue",
+            "function_bound_ms": gnn_row["function_bound_ms"],
+            "host_us": gnn_row["host_us"],
+            "plain_host_us": gnn_row["plain_host_us"],
             "library_ms": None,
         },
         *probe_rows,

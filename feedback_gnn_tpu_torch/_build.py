@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 At first use, one ``nvcc`` per ``csrc/*.cu`` (K1 ``bp4_qc.cu`` and K2
-``bp2_qc.cu``, which share ``qc_common.cuh``, and the probe kernels of
-``probes.cu``), all started together, compiles each source into an object,
+``bp2_qc.cu``, which share ``qc_common.cuh``, the probe kernels of
+``probes.cu`` and the fused feedback-GNN step of ``gnn_feedback.cu``), all
+started together, compiles each source into an object,
 and one more links them into a shared library with a plain C interface,
 which ``ctypes`` loads.  No PyTorch headers are involved.  The library goes into
 ``_build/`` beside this file (listed in .gitignore), named by a hash of the
@@ -135,6 +136,13 @@ def _load() -> None:
     dll.fgt_probe_phi_launch.restype = i
     dll.fgt_probe_phi_last_launch.argtypes = [ctypes.POINTER(i)]
     dll.fgt_probe_phi_last_launch.restype = None
+    side = [p, i, p, i, p, p, p, i]  # logits, rows, syndromes, rows, cn ids, masks, degrees, dv
+    dll.fgt_gnn_feedback_launch.argtypes = [p, i] + side + side + [p, p, p, p] + [i] * 5 + [p]
+    dll.fgt_gnn_feedback_launch.restype = i
+    dll.fgt_gnn_feedback_packed_floats.argtypes = [i] * 3
+    dll.fgt_gnn_feedback_packed_floats.restype = i
+    dll.fgt_gnn_feedback_occupancy.argtypes = [i] * 3 + [p]
+    dll.fgt_gnn_feedback_occupancy.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

@@ -304,6 +304,7 @@ def data_seed(seed: int, data_index: int) -> int:
     return int(np.random.SeedSequence([seed, data_index]).generate_state(1, np.uint64)[0])
 
 
+@torch.no_grad()
 def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig,
                        generator: torch.Generator, p, batch: int, wt: int | None = None,
                        return_full: bool = False, qc=None, return_overflow: bool = False,
@@ -320,7 +321,10 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
     edge-sharded ``graph`` (the flags of a sample are or-reduced over it);
     ``data_axis`` the data-parallel group, over which the counts are summed
     in one all-reduce, so every rank returns the global counts.  The
-    caller seeds each data rank's generator (``data_seed``).
+    caller seeds each data rank's generator (``data_seed``).  Runs under
+    ``torch.no_grad``: parameters that require grad (a model just trained)
+    build no autograd graph, and the GNN step takes the fused kernel on a
+    card.
     """
     n, n_pad = graph.n, graph.n_pad
     hx, hz = graph.hx, graph.hz
