@@ -7,6 +7,8 @@ a lower precision (the control) and of planted faults (the upper readings).
     python3 -m benchmark.calibrate --workload n882_nG3.train_b100 --seeds 1 2 3 \\
         --control tf32 --faults half_batch altered_loss    # once BENCHMARK.json holds the cell
 
+Each reading is the ``readings(r, fault=None, control=None)`` of the
+cell's traffic kind, found by name as ``benchmark.run`` finds its ``run``:
 Monte-Carlo cells read the batches a run checks (``check_batches`` of the
 mix) with no window around them; training cells the set-up's steps.  One
 JSON line a reading.
@@ -22,15 +24,25 @@ import time
 import torch
 
 from .harness import load_json
+from .run import find_kind, load_run
 
-__all__ = ["main"]
+__all__ = ["main", "readings"]
 
 
-def _mc(workload, seed, control):
-    from .run import run_cell
-
-    _, out = run_cell(workload, seed, 1e-6, False, control=control, t_start=time.perf_counter())
-    return {c.name: c.value for c in out.checks} | {"notes": out.notes[1:4]}
+def readings(workload, seeds, control=None, faults=(), control_seeds=3, manifest=None):
+    """One dict a reading: the program on every seed, then the control and
+    each fault on the first ``control_seeds`` seeds."""
+    manifest = manifest or load_json("BENCHMARK.json")
+    modes = [("program", None)] + ([("control", control)] if control else []) + [("fault", f) for f in faults]
+    for i, seed in enumerate(seeds):
+        for mode, what in modes:
+            if mode != "program" and i >= control_seeds:
+                continue
+            t0 = time.perf_counter()
+            r = load_run(workload, seed, 0.0, False, t_start=t0, manifest=manifest)
+            got = find_kind(r.traffic["kind"]).readings(r, fault=what if mode == "fault" else None,
+                                                        control=what if mode == "control" else None)
+            yield {"seed": seed, "mode": mode, "what": what, "s": round(time.perf_counter() - t0, 2), **got}
 
 
 def main(argv=None):
@@ -49,25 +61,8 @@ def main(argv=None):
     if cell is None:
         print(f"no workload {args.workload!r} in BENCHMARK.json", file=sys.stderr)
         return 2
-    kind = load_json(f"benchmark/traffic/{cell['traffic']}.json")["kind"]
-    modes = [("program", None)] + ([("control", args.control)] if args.control else []) \
-        + [("fault", f) for f in args.faults]
-    for i, seed in enumerate(args.seeds):
-        for mode, what in modes:
-            if mode != "program" and i >= args.control_seeds:
-                continue
-            t0 = time.perf_counter()
-            if kind == "mc":
-                got = _mc(args.workload, seed, what)
-            else:
-                from . import train
-                from .run import load_run
-
-                r = load_run(args.workload, seed, 0.0, False, t_start=time.perf_counter(), manifest=manifest)
-                got = train.readings(r, fault=what if mode == "fault" else None,
-                                     control=what if mode == "control" else None)
-            print(json.dumps({"seed": seed, "mode": mode, "what": what, "s": round(time.perf_counter() - t0, 2),
-                              **got}), flush=True)
+    for line in readings(args.workload, args.seeds, args.control, args.faults, args.control_seeds, manifest):
+        print(json.dumps(line), flush=True)
     return 0
 
 

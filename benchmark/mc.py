@@ -20,6 +20,7 @@ has closed and the peak memory is read (reference/cascade.py).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -30,8 +31,9 @@ from . import counts
 from .harness import Check, Outcome, ROOT, Run, peak_memory, synchronize
 from .trace import Tracer
 
-__all__ = ["run", "Recorder"]
+__all__ = ["KIND", "run", "readings", "Recorder"]
 
+KIND = "mc"
 WARMUP_BATCHES = 2
 
 
@@ -226,7 +228,19 @@ def run(r: Run) -> Outcome:
     ops_gnn = sum(counts.gnn_ops(code.n, code.qx.num_edges, code.qz.num_edges, hidden, msg_dims,
                                  int(r.config["gnn"]["mlp_layers"]) - 1, b) for b in gnn_batches)
     ops_gf2 = sum(counts.gf2_ops(z, b) for z, b in gf2)
-    context = dict(kind="mc", k1_bound_ms=bound_k1, ops={"k1": ops_k1, "gnn": ops_gnn, "gf2": ops_gf2},
-                   k1_launches=len(launches))
+    context = dict(kind=KIND, loop="eval", k1_bound_ms=bound_k1,
+                   ops={"k1": ops_k1, "gnn": ops_gnn, "gf2": ops_gf2}, k1_launches=len(launches))
     metrics = {"syndromes_per_s": decoded / window, "setup_s": setup_s}
     return Outcome(metrics, decoded, overflow, checks, mem, tracer.data, context, notes)
+
+
+def readings(r: Run, fault: str | None = None, control: str | None = None) -> dict:
+    """The compared numbers of the checked batches with no window around
+    them (calibration), and three lines of the notes: the program as it is,
+    or (``control`` "bf16") with its bfloat16 carry.  This kind plants no
+    fault here; the tests plant them (benchmark/tests/test_bench_check.py)."""
+    if fault is not None or control not in (None, "bf16"):
+        raise ValueError(f"the mc kind reads no fault and no control but bf16 (fault {fault!r}, "
+                         f"control {control!r})")
+    out = run(dataclasses.replace(r, control=control))
+    return {c.name: c.value for c in out.checks} | {"notes": out.notes[1:4]}

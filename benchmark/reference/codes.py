@@ -6,6 +6,10 @@ hx = [A, I (x) circ(b)], hz = [I (x) circ(b)^T, A^T], where A is a block
 matrix of l x l single-shift circulants (shift -1: a zero block) and a
 circulant with shifts ``pows`` has ones at ((i + c) mod l, i).
 
+Any other family ``<family>`` is built by ``build(spec) -> (hx, hz, lift or
+None)`` of the module ``family_<family>.py`` beside this one; every family's
+matrices are held to the same checks (binary, CSS, the configured n and k).
+
 Everything here is written from the construction's definition; nothing is
 read from the program.  The slot layouts (``tanner``, ``rowset``) follow
 the published decoder's conventions: edges in VN-major order, a VN's slots
@@ -14,11 +18,12 @@ in increasing CN order, a CN's slots in increasing VN order.
 
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["Code", "QCSpec", "Tanner", "RowSet", "build_code", "gf2_kernel", "qc_spec",
+__all__ = ["Code", "QCSpec", "Tanner", "RowSet", "build_code", "family_builder", "gf2_kernel", "qc_spec",
            "tanner", "rowset"]
 
 
@@ -212,24 +217,50 @@ def rowset(h: np.ndarray) -> RowSet:
 class Code:
     n: int
     k: int
-    l: int
+    l: int | None  # the lift of a block-circulant code, else None
     hx: np.ndarray  # [mx, n] int64
     hz: np.ndarray  # [mz, n]
     ker_hx: np.ndarray  # rows spanning ker(hx): an X residual is a logical error
     ker_hz: np.ndarray  # unless it is orthogonal to all of them (and so for Z)
-    qx: QCSpec
-    qz: QCSpec
+    qx: QCSpec | None  # hx's and hz's block-circulant layouts where there is a lift
+    qz: QCSpec | None
 
 
-def build_code(spec: dict) -> Code:
-    """The code of a configuration file's ``code`` entry."""
-    if spec["family"] != "qc_ghp":
-        raise ValueError(f"unknown code family {spec['family']!r}")
+def qc_ghp(spec: dict):
+    """(hx, hz, lift) of a ``qc_ghp`` entry."""
     l = int(spec["lift"])
     a = spec["shifts"]
     if isinstance(a, dict):  # a cyclic shift matrix: its diagonals' shifts
         a = cyclic_shift_matrix(int(a["size"]), a["diagonals"])
     hx, hz = ghp(l, a, spec["circulant"])
+    return hx, hz, l
+
+
+def family_builder(family: str):
+    """``build`` of the code family's module, or ValueError where there is
+    none."""
+    if family == "qc_ghp":
+        return qc_ghp
+    if isinstance(family, str) and family.isidentifier():
+        name = f"{__package__}.family_{family}"
+        try:
+            build = getattr(importlib.import_module(name), "build", None)
+        except ModuleNotFoundError as e:
+            if e.name != name:
+                raise  # the family's module exists and lacks a module it imports
+            build = None
+        if callable(build):
+            return build
+    raise ValueError(f"unknown code family {family!r}")
+
+
+def build_code(spec: dict) -> Code:
+    """The code of a configuration file's ``code`` entry."""
+    hx, hz, l = family_builder(spec["family"])(spec)
+    hx, hz = np.asarray(hx, np.int64), np.asarray(hz, np.int64)
+    if hx.ndim != 2 or hz.ndim != 2 or hx.shape[1] != hz.shape[1] or not np.isin(hx, (0, 1)).all() \
+            or not np.isin(hz, (0, 1)).all():
+        raise ValueError(f"hx {hx.shape} and hz {hz.shape} are not binary matrices of one width")
     if np.any(hx @ hz.T % 2):
         raise ValueError("hx hz^T != 0: not a CSS code")
     ker_hx, ker_hz = gf2_kernel(hx), gf2_kernel(hz)
@@ -237,4 +268,5 @@ def build_code(spec: dict) -> Code:
     k = len(ker_hx) - (n - len(ker_hz))
     if k != int(spec["k"]) or n != int(spec["n"]):
         raise ValueError(f"built [[{n},{k}]], configured [[{spec['n']},{spec['k']}]]")
-    return Code(n, k, l, hx, hz, ker_hx, ker_hz, qc_spec(hx, l), qc_spec(hz, l))
+    qx, qz = (qc_spec(hx, l), qc_spec(hz, l)) if l is not None else (None, None)
+    return Code(n, k, l, hx, hz, ker_hx, ker_hz, qx, qz)

@@ -4,19 +4,21 @@
 
 Reads the cell from BENCHMARK.json, its configuration from the file the
 manifest names, its traffic from ``benchmark/traffic/<traffic>.json`` and
-its limits from ``benchmark/limits/<workload>.json``; sets up, warms up,
-measures for ``--seconds``, checks what the timed path produced against
-the reference, and prints one JSON line last on standard output.  With
-``--trace 0`` the line holds the cell's end-to-end metrics; with
-``--trace 1`` a profiler records a few steps of the window and each
-per-layer metric is read from them by its reader,
+its limits from ``benchmark/limits/<workload>.json``.  The traffic's
+``kind`` names the module that runs it, ``benchmark/<kind>.py``, which
+declares ``KIND = "<kind>"`` and defines ``run(r: Run) -> Outcome``: it
+sets up, warms up, measures for ``--seconds`` and checks what the timed
+path produced against the reference.  The run prints one JSON line last on
+standard output.  With ``--trace 0`` the line holds the cell's end-to-end
+metrics; with ``--trace 1`` a profiler records a few steps of the window
+and each per-layer metric is read from them by its reader,
 ``benchmark/metrics/<metric>.py``.  Each compared number is printed beside
 its limit as the last lines on standard error and under ``checks``, the
 line's last key.
 
-It exits with 2 and prints no result where no card (or fewer cards than
-the cell asks for) is found, and with 3 where JAX or the JAX package is
-loaded once the window has closed.
+It exits with 2 and prints no result where the traffic's kind is not such
+a module or no card (or fewer cards than the cell asks for) is found, and
+with 3 where JAX or the JAX package is loaded once the window has closed.
 """
 
 from __future__ import annotations
@@ -30,16 +32,42 @@ import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 
 import torch  # noqa: E402
 
 from .harness import ROOT, Run, load_json, power_limit_w  # noqa: E402
 
-__all__ = ["load_run", "run_cell", "main", "forbidden_modules", "metric_applies", "read_metric"]
+__all__ = ["load_run", "run_cell", "main", "forbidden_modules", "metric_applies", "read_metric", "find_kind",
+           "UnknownKind"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "feedback_gnn_tpu")
-KINDS = {"mc": "benchmark.mc", "train": "benchmark.train"}
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")  # the manifest's rule for a name
+
+
+class UnknownKind(ValueError):
+    """A traffic kind with no module that declares it."""
+
+
+def find_kind(kind):
+    """The module ``benchmark.<kind>`` of a traffic kind, which declares
+    ``KIND = "<kind>"`` and defines ``run(r: Run) -> Outcome``; raises
+    UnknownKind for any other name, so that no other module of the
+    benchmark (``harness``, ``trace``, ...) or a misspelt name runs."""
+    if not isinstance(kind, str) or not NAME.match(kind):
+        raise UnknownKind(f"traffic kind {kind!r} is not a name")
+    name = f"benchmark.{kind}"
+    try:
+        mod = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name is None or not (name == e.name or name.startswith(e.name + ".")):
+            raise  # the kind's module exists and lacks a module it imports
+        mod = None
+    if mod is None or getattr(mod, "KIND", None) != kind or not callable(getattr(mod, "run", None)):
+        raise UnknownKind(f"no traffic kind {kind!r}: benchmark/{kind}.py has to declare KIND = {kind!r} "
+                          "and define run(r)")
+    return mod
 
 
 def forbidden_modules(names=None):
@@ -84,9 +112,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     """(result line as a dict, Outcome) of one run."""
     manifest = manifest or load_json("BENCHMARK.json")
     r = load_run(workload, seed, seconds, trace, device, batch, control, t_start, manifest)
-    cell, traffic = r.cell, r.traffic
-    kind = importlib.import_module(KINDS[traffic["kind"]])
-    out = kind.run(r)
+    cell = r.cell
+    out = find_kind(r.traffic["kind"]).run(r)
 
     dev = r.device
     metrics = {}
@@ -130,6 +157,11 @@ def main(argv=None):
     cell = next((w for w in manifest["workloads"] if w["name"] == args.workload), None)
     if cell is None:
         print(f"no workload {args.workload!r} in BENCHMARK.json", file=sys.stderr)
+        return 2
+    try:
+        find_kind(load_json(os.path.join("benchmark", "traffic", f"{cell['traffic']}.json"))["kind"])
+    except UnknownKind as e:
+        print(e, file=sys.stderr)
         return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
         print(f"{args.workload} needs {cell['chips']} CUDA card(s); found "

@@ -14,9 +14,9 @@ import time
 import pytest
 import torch
 
-from benchmark import train
+from benchmark import mc, train
 from benchmark.harness import load_json
-from benchmark.run import run_cell
+from benchmark.run import load_run, run_cell
 
 MC_BATCH, TRAIN_BATCH = 64, 8
 SEED = 2**33 + 12345  # a seed wider than 32 bits
@@ -59,6 +59,7 @@ def test_port_equals_reference(workload, batch):
     assert res["attempted"] > 0 and res["failed"] == 0
     assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     if "mc" in workload:
+        assert out.context["loop"] == "eval"  # the eval idle share reads it
         assert res["checks"]["llr_gap"]["value"] == 0.0
         assert res["checks"]["mismatches"]["value"] == 0
     json.dumps(res)
@@ -142,6 +143,16 @@ def test_mc_control_is_incorrect():
     res, _ = _run("n882_nG3.mc_p08", MC_BATCH, control="bf16")
     assert res["correct"] is False
     assert res["checks"]["llr_gap"]["value"] > res["checks"]["llr_gap"]["limit"]
+
+
+@pytest.mark.parametrize("control", [None, "bf16"])
+def test_mc_readings_are_the_checked_numbers_of_a_run(control):
+    """What calibrate.py prints for an mc cell: the numbers a run with no
+    window checks, and three lines of its notes."""
+    r = load_run("n882_nG3.mc_p08", SEED, 0.0, False, device="cpu", batch=MC_BATCH, manifest=with_train_cell())
+    got = mc.readings(r, control=control)
+    _, out = _run("n882_nG3.mc_p08", MC_BATCH, control=control)
+    assert got == {c.name: c.value for c in out.checks} | {"notes": out.notes[1:4]}
 
 
 @pytest.mark.parametrize("fault", train.FAULTS)

@@ -8,6 +8,8 @@ import re
 
 import pytest
 
+from benchmark.run import find_kind
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -106,11 +108,13 @@ def test_every_file_is_found_by_name(manifest):
             conf = json.load(f)
         assert conf["name"] == c["name"] and conf["reduced"] == c["reduced"]
         files.add(c["file"])
-        assert os.path.exists(os.path.join(ROOT, conf["weights"]))
+        if "weights" in conf:
+            assert os.path.exists(os.path.join(ROOT, conf["weights"]))
     assert len(files) == len(manifest["configs"])
     for w in manifest["workloads"]:
         with open(os.path.join(ROOT, bench, "traffic", f"{w['traffic']}.json")) as f:
-            assert json.load(f)["kind"] in ("mc", "train")
+            kind = json.load(f)["kind"]
+        assert find_kind(kind).KIND == kind
         with open(os.path.join(ROOT, bench, "limits", f"{w['name']}.json")) as f:
             assert all(v >= 0 for v in json.load(f).values())
     for m in manifest["per_layer"]:

@@ -53,7 +53,7 @@ def test_reduce_clips_to_the_recorded_steps():
     assert d.window_s == pytest.approx(200e-6)
     assert d.busy_s == pytest.approx((50 + 30 + 10 + 10) * 1e-6)
     assert len(d.device_ops) == 5
-    idle = _reader("device_idle_share.eval")(d, {"kind": "mc"})
+    idle = _reader("device_idle_share.eval")(d, {"kind": "mc", "loop": "eval"})
     assert idle == pytest.approx(50.0)
     assert _reader("device_idle_share.train")(d, {"kind": "mc"}) is None
     b = top_breakdown(d)
@@ -61,6 +61,29 @@ def test_reduce_clips_to_the_recorded_steps():
     gaps = dict((k, v) for k, v in b["idle_gaps"])
     assert gaps["aten::mm"] == pytest.approx(60e-6)  # 190..250
     assert sum(gaps.values()) == pytest.approx(100e-6)
+
+
+def _idle_keyed_on_mc(trace, context):
+    """The eval idle share as its reader read it while it keyed on the mc kind."""
+    if context.get("kind") != "mc" or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
+
+
+@pytest.mark.parametrize("ops", [
+    [],
+    [("k", 0.5, 1.75)],
+    [("bp4_qc_kernel", 0.5, 0.9), ("gemm", 0.85, 1.1), ("Memcpy HtoD", 1.3, 1.3000001), ("k", 1.7, 1.75)],
+    [("k%d" % i, 0.5 + 0.001 * i, 0.5 + 0.001 * i + 0.0007) for i in range(1000)],
+])
+def test_eval_idle_share_keys_on_the_eval_loop(ops):
+    read = _reader("device_idle_share.eval")
+    d = TraceData((0.5, 1.75), 10, ops)
+    mc_context = {"kind": "mc", "loop": "eval", "k1_bound_ms": 1.0, "ops": {}, "k1_launches": 7}
+    assert read(d, mc_context) == _idle_keyed_on_mc(d, {"kind": "mc"})  # to the bit
+    assert read(TraceData((0.0, 0.0), 1, []), mc_context) is None  # an empty window
+    for context in ({"kind": "train", "numbers": {}}, {"kind": "stub"}, {"kind": "mc"}, {"loop": "train"}):
+        assert read(d, context) is None
 
 
 def test_no_recorded_step_gives_no_trace():

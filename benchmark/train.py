@@ -32,8 +32,9 @@ import torch
 from .harness import Check, Outcome, Run, peak_memory, synchronize
 from .trace import Tracer
 
-__all__ = ["run", "readings", "make_noise", "make_params", "FAULTS"]
+__all__ = ["KIND", "run", "readings", "make_noise", "make_params", "FAULTS"]
 
+KIND = "train"
 POOL_BATCHES = 8  # noise batches drawn beside the set-up's; the window cycles through all of them
 WINDOW_CHECKS = 2  # window steps replayed by the reference
 B1 = 0.9  # Adam's first-moment decay, the program's and the reference's
@@ -349,7 +350,7 @@ def run(r: Run, window: bool = True, fault: str | None = None) -> Outcome:
     nums["nonfinite_losses"] = nonfinite
     checks = [Check(k, nums[k], v) for k, v in r.limits.items()]
     metrics = {"train_samples_per_s": done * batch / elapsed if done else 0.0, "setup_s": setup_s}
-    return Outcome(metrics, done, nonfinite, checks, mem, tracer.data, {"kind": "train", "numbers": nums}, notes)
+    return Outcome(metrics, done, nonfinite, checks, mem, tracer.data, {"kind": KIND, "numbers": nums}, notes)
 
 
 def readings(r: Run, fault: str | None = None, control: str | None = None):
