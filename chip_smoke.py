@@ -15,7 +15,9 @@ CLI (cli/evaluate.py's run(), [[882,24]] at p=0.08 to 100 logical errors,
 K1); the rescue stage (K1's tf and accurate instances); the cascade on the
 gather backend (no kernel); the binary BSC evaluation step on
 [[882,24]]'s hx (K2); the plain gather BP4 step on [[882,24]] (no kernel);
-BP2 + OSD-0 and BP4 + OSD-0 through cli/osd_eval.py (no kernel);
+BP2 + OSD-0 (no kernel) and BP4 + OSD-0 (K1's min-sum instance, also
+held to its plain version at that decode's shape) through
+cli/osd_eval.py;
 feedback_gnn_tpu_torch.probes.main(), the thirteen probes of
 scripts/probe_pallas*.py; training (K1 in both failure miners, each held
 bit for bit to its plain version; one train step held to the CPU's; the
@@ -84,17 +86,20 @@ RESCUE = dict(p=0.10, batch=20480, compact=0.25, seed=11)
 GATHER = dict(p=0.12, batch=4096, seed=12)
 # the host GF(2) core's phase: a seeded random matrix beside the codes'
 NATIVE = dict(seed=0, random=(2000, 4000), matmul_batch=4096)
-# BP + OSD-0 (cli/osd_eval.py) against RESULTS.md: BP2 at p=0.05 to 100
-# errors, BP4 at p=0.10 for a fixed 6 batches (its gather BP4 takes ~1.5 s
-# a batch); OSD sub-batches sized from the flagged rates that bp2_path and
-# bp4_plain_path measure for the same BP.  The card's OSD-0 is held to the
-# CPU's on the first OSD_CHECK_SAMPLES samples of one sub-batch of each.
+# BP + OSD-0 (cli/osd_eval.py) against RESULTS.md: BP2 at p=0.05 and BP4
+# (on K1's min-sum instance) at p=0.10, each to 100 errors; OSD sub-batches
+# sized from the flagged rates that bp2_path and bp4_plain_path measure for
+# the same BP.  The card's OSD-0 is held to the CPU's on the first
+# OSD_CHECK_SAMPLES samples of one sub-batch of each.
 OSD_BP2 = dict(p=0.05, batch=20480, ref=6.51e-4, target=100, max_mc_iter=40)
-OSD_BP4 = dict(p=0.10, batch=20480, ref=4.02e-4, steps=6)
+OSD_BP4 = dict(p=0.10, batch=20480, ref=4.02e-4, target=100, max_mc_iter=40)
 OSD_CHECK_SAMPLES = 64
 # K1 and K2 against their plain versions: bit for bit (the plain versions
 # repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
+# K1's min-sum instance at the shape of cli/osd_eval.py's bp4-osd decode
+# (the benchmark's n882_bp4_osd.osd_p10), against its plain version and timed
+OSD_K1 = dict(code="n882", batch=20480, iters=100, cn_type="minsum", factor=0.8, seed=1)
 CASES = [
     ("boxplus-phi", None),
     ("boxplus-phi", "tf"),
@@ -783,6 +788,27 @@ def compare_kernel(codes, device):
             label = f"{name} B={CMP_BATCH} iters={CMP_ITERS} {cn_type} phi={phi_impl}"
             worst = max(worst, check_against_plain(label, out, ref))
     return worst
+
+
+def compare_osd_k1(codes, device, card, K=OSD_K1):
+    """K1's min-sum instance at the BP4 + OSD-0 decode's shape against its
+    plain version, bit for bit, with the kernel's time, the plain
+    version's and the bound.  Returns them and the largest error."""
+    from feedback_gnn_tpu_torch.decoders import bp4_qc
+
+    qc = codes[K["code"]][1]
+    llr, sx, sz = random_inputs(qc, K["batch"], device, seed=K["seed"])
+    args = (qc, llr, sx, sz, K["iters"], K["cn_type"], K["factor"])
+    plan = bp4_qc._launch_plan(qc, K["batch"])
+    label = f"{K['code']} B={K['batch']} iters={K['iters']} {K['cn_type']} f={K['factor']} (BP4 + OSD-0)"
+    err = check_against_plain(label, bp4_qc.bp4_qc_marginals(*args), bp4_qc.bp4_qc_marginals_plain(*args))
+    k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(*args), reps=5)
+    p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(*args), reps=1)
+    b_ms, b_by = k1_bound_ms(qc, K["batch"], K["iters"], cn_type=K["cn_type"])
+    print(f"K1 {label}: instance (DC, DV)={plan.instance}, {plan.regime} batch, {plan.threads} threads x "
+          f"{plan.samples_per_block} samples per block; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.1%} of the kernel's time) on {card}", flush=True)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def bsc_inputs(hx, batch, p, device, seed):
@@ -1509,11 +1535,13 @@ def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
 
 
 def run_osd(bp_rates, device, card, specs=None):
-    """cli/osd_eval.py's main() for bp2-osd (to 100 errors) and bp4-osd (a
-    fixed number of batches), each OSD sub-batch sized from ``bp_rates``,
-    the flagged rates of its BP; checks the LER, the overflow and that no
-    kernel ran, and holds the card's osd0_decode to the CPU's on one
-    recorded sub-batch; prints OSD's share of a batch's time."""
+    """cli/osd_eval.py's main() for bp2-osd and bp4-osd, to 100 errors or a
+    fixed number of batches, each OSD sub-batch sized from ``bp_rates``,
+    the flagged rates of its BP; checks the LER, the overflow and the
+    kernels (bp4-osd: K1's float32 min-sum instance once a batch at the
+    whole batch; bp2-osd: none), and holds the card's osd0_decode to the
+    CPU's on one recorded sub-batch; prints OSD's share of a batch's time."""
+    from feedback_gnn_tpu_torch import obs
     from feedback_gnn_tpu_torch.cli import osd_eval
 
     specs = specs or {"bp2-osd": OSD_BP2, "bp4-osd": OSD_BP4}
@@ -1530,6 +1558,7 @@ def run_osd(bp_rates, device, card, specs=None):
         with OsdRecorder() as rec:
             res = osd_eval.main(argv)
         counts = read_counts()
+        k1_keys = obs.snapshot()["keys"].get("k1.launches", {})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         logical, blocks = int(res.logical_errors[0]), int(res.num_blocks[0])
         steps = blocks // spec["batch"]
@@ -1551,7 +1580,12 @@ def run_osd(bp_rates, device, card, specs=None):
             raise AssertionError(f"{mode}: OSD capacity overflow {int(res.overflow[0])}")
         if sig >= LER_SIGMAS:
             raise AssertionError(f"{mode}: LER {ler} outside {LER_SIGMAS} sigma of {spec['ref']}")
-        if counts != expected_counts():
+        if mode == "bp4-osd":
+            want = {(spec["batch"], 100, "minsum", None, "float32"): steps}
+            if counts != expected_counts(K1=steps) or k1_keys != want:
+                raise AssertionError(f"{mode} launched kernels: {counts}, K1 shapes {k1_keys}; expected K1's "
+                                     f"launches {want}")
+        elif counts != expected_counts():
             raise AssertionError(f"{mode} launched kernels: {counts}")
         calls = 2 if mode == "bp4-osd" else 1
         print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms:.3f} ms batch "
@@ -2476,6 +2510,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     max_err = compare_kernel(codes, device)
+    osd_k1 = compare_osd_k1(codes, device, card)
+    max_err = max(max_err, osd_k1["max_abs_err"])
     phase("kernel_vs_plain", t0)
 
     t0 = time.perf_counter()
@@ -2752,6 +2788,15 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "library_ms": None,
+        },
+        {
+            "name": "bp4_qc_marginals (minsum, BP4 + OSD-0)",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/bp4_qc.cu",
+            "replaces": "feedback_gnn_tpu/decoders/bp4_qc.py:329",
+            "shape": "[[882,24]] B=%d x %d, factor %s" % (OSD_K1["batch"], OSD_K1["iters"], OSD_K1["factor"]),
+            **osd_k1,
             "library_ms": None,
         },
         {

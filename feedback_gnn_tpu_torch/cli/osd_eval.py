@@ -4,12 +4,15 @@ the depolarizing channel, (c) plain BP2 and (d) BP2 + OSD-0 on the BSC.
 
     python -m feedback_gnn_tpu_torch.cli.osd_eval -p 0.10 0.09 -bs 2000 --osd-cap 256
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp2-osd -p 0.05 --osd-cap 1536
+    python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp4-osd -p 0.10 -bs 20480 --osd-cap 1024
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The plain BP2 mode
 decodes on the fused QC BP2 decode (the CUDA kernel on the card); the OSD
-modes decode with the gather decoders, as the JAX package's do.  Without
-``--osd-cap`` OSD runs on the whole batch: [B, 441, 883] bytes of
-elimination table (B=20480 needs 8 GB).
+modes decode with the gather decoders, as the JAX package's do, except
+``bp4-osd``, whose BP4 runs on the fused QC decode (K1 on the card, its
+plain version on the CPU) wherever the code is block-circulant, as
+[[882,24]] is.  Without ``--osd-cap`` OSD runs on the whole batch:
+[B, 429, 883] bytes of elimination table (B=20480 needs 7.8 GB).
 """
 
 from __future__ import annotations
@@ -88,12 +91,13 @@ def make_step(args, code, device):
         return step, f"plain BP2-{iters} {cn} f={factor} (BSC) [{args.accounting}]"
     if args.mode == "bp4-osd":
         graph = QuantumGraph.from_code(code, stage_mode=True).to(device)
+        qc = qc_pair_from_code(code)  # None: no block-circulant structure, the gather decoder
 
         def step(gen, p):
             return models.bp4_osd_eval_step(graph, code, gen, p, bs, num_iter=100, cn_type="minsum",
-                                            normalization_factor=0.8, osd_compact_cap=args.osd_cap)
+                                            normalization_factor=0.8, osd_compact_cap=args.osd_cap, qc=qc)
 
-        return step, "BP4 minsum 0.8 x100 + OSD0"
+        return step, "BP4 minsum 0.8 x100 + OSD0" + (" (QC kernel)" if qc is not None else "")
     hx_np = np.asarray(code.hx)
     basis = row_basis(hx_np)
     pivot = row_echelon(hx_np.T)[3]

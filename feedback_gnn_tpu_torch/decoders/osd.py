@@ -9,19 +9,27 @@ The elimination is integer only, so its solutions equal the JAX package's
 bit for bit on the same inputs: the sort is stable (as ``jnp.argsort``;
 LLR ties are common) and ``torch.argmax`` returns the first maximum (as
 ``jnp.argmax``).  The table is stored as uint8, a quarter of the JAX
-package's int32 bytes: [B, rank, n+1] = [B, 441, 883] is 389 KB per sample
+package's int32 bytes: [B, rank, n+1] = [B, 429, 883] is 379 KB per sample
 on [[882,24]].
 
 ``bp_osd_correct`` runs OSD on the BP-flagged samples; with ``compact_cap``
 it first gathers them into a dense sub-batch of that size (stable sort,
 flagged first), and flagged samples beyond the capacity keep their BP
 estimate and are counted as overflow.
+
+Spans (obs.py): ``osd.flag`` (the flag test, the binary reliabilities and
+the pivot-reduced syndromes), ``osd.compact`` (the flagged-first gather
+and the scatter back) and ``osd.eliminate`` (each ``osd0_decode`` call,
+attribute ``side`` "x" or "z").  Counters while tracing: ``osd.flagged``
+(flagged samples, summed on the device) and ``osd.capacity`` (the samples
+OSD decodes: the sub-batch, or the whole batch without a cap).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..ops.gf2mat import mod2_matmul
 from .bp4 import quaternary_to_binary_llrs
 from .cascade import _flagged_first
@@ -90,34 +98,49 @@ def bp_osd_correct(graph, bp_result, noise_x, noise_z, pivot_hx, pivot_hz, hx_ba
     noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
     noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
     dev = noise_x.device
-    # flagged = BP failed to reproduce the syndrome
-    x_diff = noise_x ^ bp_result.x_hat
-    z_diff = noise_z ^ bp_result.z_hat
-    flagged = (mod2_matmul(hz, x_diff) != 0).any(dim=0) | (mod2_matmul(hx, z_diff) != 0).any(dim=0)
+    with obs.span("osd.flag"):
+        # flagged = BP failed to reproduce the syndrome
+        x_diff = noise_x ^ bp_result.x_hat
+        z_diff = noise_z ^ bp_result.z_hat
+        flagged = (mod2_matmul(hz, x_diff) != 0).any(dim=0) | (mod2_matmul(hx, z_diff) != 0).any(dim=0)
 
-    # binary reliabilities from the quaternary marginals, true qubit rows
-    osd_llrx, osd_llrz = quaternary_to_binary_llrs(
-        bp_result.llrx[:n], bp_result.llry[:n], bp_result.llrz[:n])
+        # binary reliabilities from the quaternary marginals, true qubit rows
+        osd_llrx, osd_llrz = quaternary_to_binary_llrs(
+            bp_result.llrx[:n], bp_result.llry[:n], bp_result.llrz[:n])
 
-    # pivot-reduced syndromes of the true noise
-    red_sx = mod2_matmul(hx, noise_z)[torch.as_tensor(pivot_hx, device=dev)]
-    red_sz = mod2_matmul(hz, noise_x)[torch.as_tensor(pivot_hz, device=dev)]
+        # pivot-reduced syndromes of the true noise
+        red_sx = mod2_matmul(hx, noise_z)[torch.as_tensor(pivot_hx, device=dev)]
+        red_sz = mod2_matmul(hz, noise_x)[torch.as_tensor(pivot_hz, device=dev)]
+    cap = flagged.shape[0] if compact_cap is None else min(flagged.shape[0], int(compact_cap))
+    if obs.on():
+        obs.count_device("osd.flagged", flagged)
+        obs.count("osd.capacity", cap)
 
     if compact_cap is not None:
-        cap = min(flagged.shape[0], int(compact_cap))
-        idx, valid = _flagged_first(flagged, cap)
-        z_osd = pad_rows_to(osd0_decode(osd_llrz.T[idx], hx_basis, red_sx[:, idx]).T, graph.n_pad)
-        x_osd = pad_rows_to(osd0_decode(osd_llrx.T[idx], hz_basis, red_sz[:, idx]).T, graph.n_pad)
-        upd = valid[None, :]
-        x_hat = bp_result.x_hat.index_copy(1, idx, torch.where(upd, x_osd, bp_result.x_hat[:, idx]))
-        z_hat = bp_result.z_hat.index_copy(1, idx, torch.where(upd, z_osd, bp_result.z_hat[:, idx]))
-        # flagged samples beyond the capacity keep their BP estimate: not
-        # the reference's result, so the caller must see the count
-        overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
+        with obs.span("osd.compact"):
+            idx, valid = _flagged_first(flagged, cap)
+            llrz_s, red_sx_s = osd_llrz.T[idx], red_sx[:, idx]
+            llrx_s, red_sz_s = osd_llrx.T[idx], red_sz[:, idx]
+        with obs.span("osd.eliminate", side="z"):
+            z_osd = osd0_decode(llrz_s, hx_basis, red_sx_s)
+        with obs.span("osd.eliminate", side="x"):
+            x_osd = osd0_decode(llrx_s, hz_basis, red_sz_s)
+        with obs.span("osd.compact"):
+            z_osd, x_osd = pad_rows_to(z_osd.T, graph.n_pad), pad_rows_to(x_osd.T, graph.n_pad)
+            upd = valid[None, :]
+            x_hat = bp_result.x_hat.index_copy(1, idx, torch.where(upd, x_osd, bp_result.x_hat[:, idx]))
+            z_hat = bp_result.z_hat.index_copy(1, idx, torch.where(upd, z_osd, bp_result.z_hat[:, idx]))
+            # flagged samples beyond the capacity keep their BP estimate: not
+            # the reference's result, so the caller must see the count
+            overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
         return x_hat, z_hat, flagged, overflow
 
-    z_osd = pad_rows_to(osd0_decode(osd_llrz.T, hx_basis, red_sx).T, graph.n_pad)
-    x_osd = pad_rows_to(osd0_decode(osd_llrx.T, hz_basis, red_sz).T, graph.n_pad)
-    x_hat = torch.where(flagged[None, :], x_osd, bp_result.x_hat)
-    z_hat = torch.where(flagged[None, :], z_osd, bp_result.z_hat)
+    with obs.span("osd.eliminate", side="z"):
+        z_osd = osd0_decode(osd_llrz.T, hx_basis, red_sx)
+    with obs.span("osd.eliminate", side="x"):
+        x_osd = osd0_decode(osd_llrx.T, hz_basis, red_sz)
+    with obs.span("osd.compact"):
+        z_osd, x_osd = pad_rows_to(z_osd.T, graph.n_pad), pad_rows_to(x_osd.T, graph.n_pad)
+        x_hat = torch.where(flagged[None, :], x_osd, bp_result.x_hat)
+        z_hat = torch.where(flagged[None, :], z_osd, bp_result.z_hat)
     return x_hat, z_hat, flagged, torch.zeros((), dtype=torch.int32, device=dev)

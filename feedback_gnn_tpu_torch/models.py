@@ -17,18 +17,24 @@ given to this package and to the JAX package.
   gnn_bp4_eval_step    the fully-learned GNN decoder (decoders/gnn_full.py)
                        over the depolarizing channel
 
-The OSD steps decode with the gather decoders, as the JAX package's do.
+The OSD steps decode with the gather decoders, as the JAX package's do;
+``bp4_osd_eval_step`` with ``qc`` decodes on the fused QC decode instead
+(K1 on the card), as the cascade's decodes do.  Like the cascade's step it
+emits the spans ``step.sample`` and ``step.account`` and ends the batch
+(``obs.end_batch``) once a step; its BP decode is the span ``osd.bp``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import obs
 from .channels.bsc import bsc_sample
 from .channels.pauli import depolarizing_probs, pauli_fixed_weight, pauli_iid
 from .decoders.bp2 import bp2_decode
 from .decoders.bp2_qc import bp2_qc_logits
 from .decoders.bp4 import bp4_decode
+from .decoders.bp4_qc import bp4_decode_qc
 from .decoders.cascade import prior_llr, sandwich_eval_step  # noqa: F401
 from .decoders.cascade import _flagged_first
 from .decoders.gnn_full import gnn_bp4_apply
@@ -155,45 +161,62 @@ def bp4_plain_eval_step(graph, generator: torch.Generator, p, batch: int, num_it
 
 
 def bp4_osd_count(graph, code, noise_x, noise_z, p, num_iter: int = 100, cn_type: str = "minsum",
-                  normalization_factor: float = 0.8, osd_compact_cap: int | None = None):
+                  normalization_factor: float = 0.8, osd_compact_cap: int | None = None, qc=None,
+                  msg_dtype: str = "float32"):
     """Decode the syndromes of given Pauli errors ``noise_x``/``noise_z``
     [n, B] with BP4 and OSD-0 on the BP-flagged samples, and count the
-    errors; the decode-and-count part of ``bp4_osd_eval_step``."""
+    errors; the decode-and-count part of ``bp4_osd_eval_step``.  With
+    ``qc`` (the code's ``QCPair``) BP runs on the fused QC decode with
+    message carry ``msg_dtype``, else on the gather decoder.  Ends the
+    batch (``obs.end_batch``)."""
+    if qc is None and msg_dtype != "float32":
+        raise ValueError(f"the {msg_dtype} message carry needs the fused QC decode (qc)")
     n, batch = noise_x.shape
-    noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
-    noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
-    syndrome_x = mod2_matmul(graph.hx, noise_z)
-    syndrome_z = mod2_matmul(graph.hz, noise_x)
-    llr0 = prior_llr(p, n, batch, n_pad=graph.n_pad, device=noise_x.device)
+    with obs.span("step.sample"):
+        noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
+        noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
+        syndrome_x = mod2_matmul(graph.hx, noise_z)
+        syndrome_z = mod2_matmul(graph.hz, noise_x)
+        llr0 = prior_llr(p, n, batch, n_pad=graph.n_pad, device=noise_x.device)
 
-    res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, num_iter, cn_type, normalization_factor)
+    with obs.span("osd.bp"):
+        if qc is not None:
+            res = bp4_decode_qc(graph, qc, llr0, syndrome_x, syndrome_z, num_iter, cn_type,
+                                normalization_factor, need_logits=False, msg_dtype=msg_dtype)
+        else:
+            res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, num_iter, cn_type, normalization_factor)
     x_hat, z_hat, flagged, osd_overflow = bp_osd_correct(
         graph, res, noise_x, noise_z, code.pivot_hx, code.pivot_hz, code.hx_basis, code.hz_basis,
         compact_cap=osd_compact_cap)
-    x_diff = noise_x ^ x_hat
-    z_diff = noise_z ^ z_hat
-    # the logical check uses lz/lx, as the reference's BP4_OSD_Model does
-    ls_hat = torch.cat([mod2_matmul(graph.lz, x_diff), mod2_matmul(graph.lx, z_diff)], dim=0)
-    logical = (ls_hat != 0).any(dim=0).sum(dtype=torch.int32)
-    # first output: the BP-flagged samples routed to OSD (a diagnostic; the
-    # LER is the same either way)
-    if osd_compact_cap is not None:
-        return flagged.sum(dtype=torch.int32), logical, osd_overflow
-    return flagged.sum(dtype=torch.int32), logical
+    with obs.span("step.account"):
+        x_diff = noise_x ^ x_hat
+        z_diff = noise_z ^ z_hat
+        # the logical check uses lz/lx, as the reference's BP4_OSD_Model does
+        ls_hat = torch.cat([mod2_matmul(graph.lz, x_diff), mod2_matmul(graph.lx, z_diff)], dim=0)
+        logical = (ls_hat != 0).any(dim=0).sum(dtype=torch.int32)
+        # first output: the BP-flagged samples routed to OSD (a diagnostic; the
+        # LER is the same either way)
+        out = (flagged.sum(dtype=torch.int32), logical)
+        if osd_compact_cap is not None:
+            out += (osd_overflow,)
+    obs.end_batch()
+    return out
 
 
 def bp4_osd_eval_step(graph, code, generator: torch.Generator, p, batch: int, num_iter: int = 100,
                       cn_type: str = "minsum", normalization_factor: float = 0.8,
-                      osd_compact_cap: int | None = None):
+                      osd_compact_cap: int | None = None, qc=None, msg_dtype: str = "float32"):
     """BP4 + OSD-0 fallback over the depolarizing channel.  ``graph`` is a
     ``QuantumGraph`` of tensors, ``code`` the ``CSSCode`` (its bases and
     pivots).  With ``osd_compact_cap`` OSD runs on a dense flagged-only
     sub-batch of that size and a third output counts the flagged samples
-    beyond it."""
-    px, py, pz = depolarizing_probs(p)
-    noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
+    beyond it.  ``qc`` (``codes.qc_pair_from_code(code)``) decodes BP on the
+    fused QC decode (K1 on the card) with message carry ``msg_dtype``."""
+    with obs.span("step.sample"):
+        px, py, pz = depolarizing_probs(p)
+        noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
     return bp4_osd_count(graph, code, noise_x, noise_z, p, num_iter, cn_type, normalization_factor,
-                         osd_compact_cap)
+                         osd_compact_cap, qc, msg_dtype)
 
 
 def bp2_osd_count(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, noise, p, num_iter: int = 100,
