@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from feedback_gnn_tpu_torch/csrc with one
 nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode; the three
 probe kernels of csrc/probes.cu; the fused feedback-GNN step of
-csrc/gnn_feedback.cu), holds each against its plain PyTorch version on
-the card (the GNN step also timed beside it, with its host cost a call
+csrc/gnn_feedback.cu; OSD-0's elimination of csrc/osd0.cu), holds each
+against its plain PyTorch version on the card (the GNN step also timed
+beside it, with its host cost a call
 and its issue bounds), and drives the paths that run them or their
 neighbours (every cascade counting one fused GNN step a round): the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
 and the [[1270,28]] compacted workload of cli/bench.py (K1); the evaluate
@@ -15,8 +16,9 @@ CLI (cli/evaluate.py's run(), [[882,24]] at p=0.08 to 100 logical errors,
 K1); the rescue stage (K1's tf and accurate instances); the cascade on the
 gather backend (no kernel); the binary BSC evaluation step on
 [[882,24]]'s hx (K2); the plain gather BP4 step on [[882,24]] (no kernel);
-BP2 + OSD-0 (no kernel) and BP4 + OSD-0 (K1's min-sum instance, also
-held to its plain version at that decode's shape) through
+BP2 + OSD-0 (the OSD-0 kernel) and BP4 + OSD-0 (K1's min-sum instance,
+also held to its plain version at that decode's shape, and the OSD-0
+kernel, held to its plain version at the BP+OSD cell's shapes) through
 cli/osd_eval.py;
 feedback_gnn_tpu_torch.probes.main(), the thirteen probes of
 scripts/probe_pallas*.py; training (K1 in both failure miners, each held
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import faulthandler
 import gc
 import hashlib
@@ -94,6 +97,8 @@ NATIVE = dict(seed=0, random=(2000, 4000), matmul_batch=4096)
 OSD_BP2 = dict(p=0.05, batch=20480, ref=6.51e-4, target=100, max_mc_iter=40)
 OSD_BP4 = dict(p=0.10, batch=20480, ref=4.02e-4, target=100, max_mc_iter=40)
 OSD_CHECK_SAMPLES = 64
+# OSD-0's kernel against its plain version at the BP+OSD cell's shapes
+OSD_KERNEL = dict(p=0.10, batch=20480, cap=1024, seed=31)
 # K1 and K2 against their plain versions: bit for bit (the plain versions
 # repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
@@ -350,13 +355,17 @@ def reset_counts():
 def read_counts():
     """Launches since the last reset_counts: K1, K2, the fused GNN step
     (GNN) and the GNN steps the card ran on the plain version (GNN_plain:
-    an edge shard or a gradient), and each probe wrapper."""
+    an edge shard or a gradient), the OSD-0 kernel (OSD) and OSD-0's plain
+    loop on the card (OSD_plain), and each probe wrapper."""
     from feedback_gnn_tpu_torch import obs, probes
 
-    gnn = obs.snapshot()["keys"].get("gnn.launches", {})
+    keys = obs.snapshot()["keys"]
+    gnn, osd = keys.get("gnn.launches", {}), keys.get("osd.launches", {})
     return {"K1": obs.counter("k1.launches"), "K2": obs.counter("k2.launches"),
             "GNN": sum(n for (path, _), n in gnn.items() if path == "fused"),
             "GNN_plain": sum(n for (path, _), n in gnn.items() if path == "plain"),
+            "OSD": sum(n for (path, _), n in osd.items() if path == "kernel"),
+            "OSD_plain": sum(n for (path, _), n in osd.items() if path == "plain"),
             **{name: obs.counter(f"probe.{name}.launches") for name in probes.WRAPPERS}}
 
 
@@ -1070,18 +1079,23 @@ def osd_capacity(flagged_rate, batch):
 
 class OsdRecorder:
     """Stands in for osd0_decode where the OSD steps call it (models.py,
-    decoders/osd.py) and keeps the first call's inputs and output."""
+    decoders/osd.py) and keeps the first ``keep`` calls' inputs and
+    outputs (``calls``; ``first`` the first)."""
 
-    def __init__(self):
+    def __init__(self, keep=1):
         from feedback_gnn_tpu_torch import models
         from feedback_gnn_tpu_torch.decoders import osd
 
-        self.modules, self.real, self.first = (models, osd), osd.osd0_decode, None
+        self.modules, self.real, self.keep, self.calls = (models, osd), osd.osd0_decode, keep, []
+
+    @property
+    def first(self):
+        return self.calls[0] if self.calls else None
 
     def __call__(self, llr, pcm, syndrome):
         out = self.real(llr, pcm, syndrome)
-        if self.first is None:
-            self.first = (llr.clone(), pcm, syndrome.clone(), out.clone())
+        if len(self.calls) < self.keep:
+            self.calls.append((llr.clone(), pcm, syndrome.clone(), out.clone()))
         return out
 
     def __enter__(self):
@@ -1115,6 +1129,73 @@ def osd_card_vs_cpu(label, rec, card):
     if not ok:
         raise AssertionError(f"{label}: osd0_decode on the card differs from the CPU")
     return ms
+
+
+def osd_kernel_vs_plain(device, card, spec=OSD_KERNEL):
+    """OSD-0's kernel against its plain version at the BP+OSD cell's
+    shapes: one ``bp4_osd_eval_step`` batch ([[882,24]], B=20480, p=0.10,
+    sub-batch 1024, K1 min-sum 0.8 x 100) with both of its osd0_decode
+    calls recorded.  The batch must launch K1 once and the OSD kernel twice
+    (one a side) and never the plain loop.  Each side's kernel equals the
+    plain version on the card bit for bit on the whole sub-batch; both are
+    timed by CUDA events, beside the bound (benchmark/osd_counts.py: the
+    reference's integer operations of the flagged samples, at 64 a clock an
+    SM) and the kernel's occupancy.  Returns the kernels line's row: both
+    sides' kernel, plain and bound ms."""
+    from benchmark import osd_counts
+    from benchmark.reference import osd as ref_osd
+    from feedback_gnn_tpu_torch import models
+    from feedback_gnn_tpu_torch._build import load_kernels
+    from feedback_gnn_tpu_torch.codes import QuantumGraph, ghp_882_24, qc_pair_from_code
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode, osd0_decode_plain, pack_columns, shared_bytes
+
+    code = ghp_882_24()
+    graph = QuantumGraph.from_code(code, stage_mode=True).to(device)
+    qc = qc_pair_from_code(code)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"])
+    reset_counts()
+    with OsdRecorder(keep=2) as rec:
+        out = models.bp4_osd_eval_step(graph, code, gen, spec["p"], spec["batch"], num_iter=100,
+                                       cn_type="minsum", normalization_factor=0.8, osd_compact_cap=spec["cap"],
+                                       qc=qc)
+        flagged = int(out[0])
+    counts = read_counts()
+    print(f"osd_kernel: one bp4_osd_eval_step batch B={spec['batch']} p={spec['p']} cap {spec['cap']}: "
+          f"flagged {flagged}, launches={counts} on {card}")
+    if counts != expected_counts(K1=1, OSD=2):
+        raise AssertionError(f"osd_kernel: the batch launched {counts}; expected K1 once and OSD twice, no plain")
+    lib = load_kernels()
+    row = dict(launches=counts["OSD"], ms=0.0, graph_ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="operations")
+    for side, (llr, pcm, syn, kernel_out) in zip("zx", rec.calls):
+        rank, n = pcm.shape
+        plain = osd0_decode_plain(llr, pcm, syn)
+        ok = torch.equal(kernel_out, plain) and torch.equal(osd0_decode(llr, pcm, syn), plain)
+        kernel_ms = time_ms(lambda: osd0_decode(llr, pcm, syn), reps=20)
+        plain_ms = time_ms(lambda: osd0_decode_plain(llr, pcm, syn), reps=1)
+        # the launch alone, in a CUDA graph: no basis copied from the host, no packing
+        cols, bare = pack_columns(torch.as_tensor(pcm, device=device)), torch.empty_like(kernel_out)
+        syn32, llr_c = syn.to(torch.int32).contiguous(), llr.contiguous()
+        launch_ms = graph_ms(lambda: lib.fgt_osd0_launch(
+            llr_c.data_ptr(), cols.data_ptr(), cols.shape[1], syn32.data_ptr(), bare.data_ptr(), llr.shape[0], n,
+            rank, torch.cuda.current_stream().cuda_stream), reps=20)
+        ok = ok and torch.equal(bare, plain)
+        _, ops = ref_osd.osd0(llr[:flagged].cpu(), pcm, syn[:, :flagged].cpu())
+        bound_ms = osd_counts.osd_bound_ms(1, int(ops.sum()))
+        occ = (ctypes.c_int * 3)()
+        err = lib.fgt_osd0_occupancy(n, rank, occ)
+        print(f"osd_kernel side {side}: [{llr.shape[0]}, {n}], basis [{rank}, {n}]: kernel == plain "
+              f"{'yes' if ok else 'NO'}; osd0_decode {kernel_ms:.4f} ms (the kernel alone, graph {launch_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({int(ops.sum())} integer operations of {flagged} "
+              f"flagged samples; {100 * bound_ms / launch_ms:.4f} % of the kernel's time); "
+              f"{shared_bytes(rank, n)} B shared, occupancy {list(occ) if err == 0 else err} "
+              f"(blocks an SM, registers, spill bytes) on {card}")
+        if not ok:
+            raise AssertionError(f"osd_kernel side {side}: the kernel differs from the plain version")
+        row["ms"] += kernel_ms
+        row["graph_ms"] += launch_ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += bound_ms
+    return row
 
 
 def probe_library(p):
@@ -1582,10 +1663,10 @@ def run_osd(bp_rates, device, card, specs=None):
             raise AssertionError(f"{mode}: LER {ler} outside {LER_SIGMAS} sigma of {spec['ref']}")
         if mode == "bp4-osd":
             want = {(spec["batch"], 100, "minsum", None, "float32"): steps}
-            if counts != expected_counts(K1=steps) or k1_keys != want:
+            if counts != expected_counts(K1=steps, OSD=2 * steps) or k1_keys != want:
                 raise AssertionError(f"{mode} launched kernels: {counts}, K1 shapes {k1_keys}; expected K1's "
                                      f"launches {want}")
-        elif counts != expected_counts():
+        elif counts != expected_counts(OSD=steps):
             raise AssertionError(f"{mode} launched kernels: {counts}")
         calls = 2 if mode == "bp4-osd" else 1
         print(f"osd {mode}: osd0_decode {calls} x {osd_ms:.3f} ms of a {step_ms:.3f} ms batch "
@@ -2721,6 +2802,7 @@ def main() -> int:
     t0 = time.perf_counter()
     run_osd({"bp2-osd": flagged2 / (BP2["steps"] * BP2["batch"]),
                         "bp4-osd": flagged4 / (BP4_PLAIN["steps"] * BP4_PLAIN["batch"])}, device, card)
+    osd_row = osd_kernel_vs_plain(device, card)
     phase("osd", t0)
 
     # 13. K2 against its plain version, and both times, at the bp2_path shape
@@ -2838,6 +2920,15 @@ def main() -> int:
             "function_bound_ms": gnn_row["function_bound_ms"],
             "host_us": gnn_row["host_us"],
             "plain_host_us": gnn_row["plain_host_us"],
+            "library_ms": None,
+        },
+        {
+            "name": "osd0_decode",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/osd0.cu",
+            "replaces": "feedback_gnn_tpu/decoders/osd.py osd0_decode (XLA ops)",
+            "shape": "[[882,24]] sub-batch %d, both sides" % OSD_KERNEL["cap"],
+            **osd_row,
             "library_ms": None,
         },
         *probe_rows,

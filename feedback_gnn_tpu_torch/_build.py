@@ -2,7 +2,8 @@
 
 At first use, one ``nvcc`` per ``csrc/*.cu`` (K1 ``bp4_qc.cu`` and K2
 ``bp2_qc.cu``, which share ``qc_common.cuh``, the probe kernels of
-``probes.cu`` and the fused feedback-GNN step of ``gnn_feedback.cu``), all
+``probes.cu``, the fused feedback-GNN step of ``gnn_feedback.cu`` and
+OSD-0's elimination of ``osd0.cu``), all
 started together, compiles each source into an object,
 and one more links them into a shared library with a plain C interface,
 which ``ctypes`` loads.  No PyTorch headers are involved.  The library goes into
@@ -143,6 +144,12 @@ def _load() -> None:
     dll.fgt_gnn_feedback_packed_floats.restype = i
     dll.fgt_gnn_feedback_occupancy.argtypes = [i] * 3 + [p]
     dll.fgt_gnn_feedback_occupancy.restype = i
+    dll.fgt_osd0_launch.argtypes = [p, p, i, p, p, i, i, i, p]
+    dll.fgt_osd0_launch.restype = i
+    dll.fgt_osd0_shared_bytes.argtypes = [i, i]
+    dll.fgt_osd0_shared_bytes.restype = i
+    dll.fgt_osd0_occupancy.argtypes = [i, i, p]
+    dll.fgt_osd0_occupancy.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

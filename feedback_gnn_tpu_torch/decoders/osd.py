@@ -1,16 +1,29 @@
 """Batched order-0 ordered-statistics decoding (OSD-0).
 
 The port of ``feedback_gnn_tpu/decoders/osd.py``: sort the qubits by
-reliability, append the syndrome column, run a rank-step batched GF(2)
-Gauss-Jordan elimination with first-one pivoting per row, scatter the
-solution back through the inverse sort.
+reliability, append the syndrome column, eliminate over GF(2) with
+first-one pivoting per row, scatter the solution back through the inverse
+sort.
 
 The elimination is integer only, so its solutions equal the JAX package's
 bit for bit on the same inputs: the sort is stable (as ``jnp.argsort``;
-LLR ties are common) and ``torch.argmax`` returns the first maximum (as
-``jnp.argmax``).  The table is stored as uint8, a quarter of the JAX
-package's int32 bytes: [B, rank, n+1] = [B, 429, 883] is 379 KB per sample
-on [[882,24]].
+LLR ties are common, and -0.0 ties with +0.0) and each row's pivot is its
+leftmost one.
+
+On a card ``osd0_decode`` is one hand-written kernel (``csrc/osd0.cu``):
+a block a sample sorts the reliabilities, builds the sample's bit-packed
+table in shared memory from the basis packed as column bit-vectors
+(``pack_columns``), eliminates forward and back-substitutes; no table
+touches device memory.  It takes any basis whose rows fit in 64 words of
+32 columns and whose block fits in 227 KB of shared memory
+(``shared_bytes``: 53 KB on [[882,24]], 106 KB on [[1270,28]]) and raises
+ValueError for any other CUDA call.  CPU tensors take
+``osd0_decode_plain``, a rank-step Gauss-Jordan loop over a uint8 table
+([B, rank, n+1] = [B, 429, 883], 379 KB a sample on [[882,24]], a quarter
+of the JAX package's int32 bytes), which is also the kernel's oracle.  The
+counter ``osd.launches`` (``obs``; always on) counts the calls on the card,
+keyed by path (``"kernel"``, or ``"plain"`` where the plain version itself
+is called with card tensors) and batch.
 
 ``bp_osd_correct`` runs OSD on the BP-flagged samples; with ``compact_cap``
 it first gathers them into a dense sub-batch of that size (stable sort,
@@ -35,22 +48,105 @@ from .bp4 import quaternary_to_binary_llrs
 from .cascade import _flagged_first
 from .graph_ops import pad_rows_to
 
-__all__ = ["osd0_decode", "bp_osd_correct"]
+__all__ = ["osd0_decode", "osd0_decode_plain", "pack_columns", "shared_bytes", "bp_osd_correct"]
+
+SHARED_LIMIT = 232_448  # bytes of shared memory a block can have on sm_90 (227 KB)
+MAX_WORDS = 64  # 32-bit words of a table row the kernel takes (two a lane)
+
+
+def pack_columns(pcm: torch.Tensor) -> torch.Tensor:
+    """[rank, n] 0/1 -> [n, ceil(rank / 32)] int32 on ``pcm``'s device: bit
+    j of word g of column c is ``pcm[32 g + j, c]``, the kernel's view of
+    the basis."""
+    rank, n = pcm.shape
+    groups = -(-rank // 32)
+    bits = torch.nn.functional.pad((pcm != 0).T.to(torch.int32), (0, 32 * groups - rank))
+    shifts = torch.arange(32, dtype=torch.int32, device=pcm.device)
+    # distinct powers of two: the int32 sum is their OR, bit 31 included
+    return (bits.view(n, groups, 32) << shifts).sum(dim=-1, dtype=torch.int32)
+
+
+def shared_bytes(rank: int, n: int) -> int:
+    """Shared memory of the kernel's block for a [rank, n] basis
+    (csrc/osd0.cu, osd_shape): the table, rank rows at an odd stride of
+    words (or the sort's 64-bit keys, a power of two of them at least n,
+    where larger), the order and its inverse (uint16), the pivots (uint16),
+    the packed syndrome and the solution."""
+    words = (n + 32) // 32
+    keys = 1 << max(n - 1, 0).bit_length()
+    region = max(4 * rank * (words | 1), 8 * keys)
+    synw = -(-(region + 4 * n + 2 * rank) // 4) * 4
+    return synw + 4 * -(-rank // 32) + 4 * words
+
+
+def _check_shape(rank: int, n: int):
+    """Raise ValueError unless the kernel takes a [rank, n] basis."""
+    words = (n + 32) // 32
+    if rank < 1 or n < 1 or words > MAX_WORDS:
+        raise ValueError(f"a [{rank}, {n}] basis: the OSD-0 kernel takes rows of at most {MAX_WORDS} words "
+                         f"of 32 columns, syndrome included (n <= {32 * MAX_WORDS - 1})")
+    need = shared_bytes(rank, n)
+    if need > SHARED_LIMIT:
+        raise ValueError(f"a [{rank}, {n}] basis needs {need} bytes of shared memory a block: the OSD-0 kernel "
+                         f"has {SHARED_LIMIT}")
+
+
+def _launch_osd0(llr, pcm, syndrome):
+    """OSD-0 as one kernel (csrc/osd0.cu) on the current stream: e_hat
+    [B, n] int32.  Raises ValueError for a call the kernel cannot take."""
+    from .._build import load_kernels
+
+    bsz, n = llr.shape
+    dev = llr.device
+    basis = torch.as_tensor(pcm, device=dev)
+    syn = torch.as_tensor(syndrome, device=dev)
+    if llr.dtype != torch.float32:
+        raise ValueError(f"reliabilities of dtype {llr.dtype}: the OSD-0 kernel takes float32")
+    if basis.dim() != 2 or basis.shape[1] != n:
+        raise ValueError(f"a basis of shape {tuple(basis.shape)} for {n} columns")
+    rank = basis.shape[0]
+    if tuple(syn.shape) != (rank, bsz):
+        raise ValueError(f"syndromes of shape {tuple(syn.shape)}: the basis and batch give ({rank}, {bsz})")
+    _check_shape(rank, n)
+    out = torch.empty((bsz, n), dtype=torch.int32, device=dev)
+    cols = pack_columns(basis)
+    llr, syn = llr.contiguous(), syn.to(torch.int32).contiguous()
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fgt_osd0_launch(llr.data_ptr(), cols.data_ptr(), cols.shape[1], syn.data_ptr(), out.data_ptr(),
+                                  bsz, n, rank, stream)
+    if err != 0:
+        raise RuntimeError(f"OSD-0 kernel launch failed: {lib.fgt_cuda_error_string(err).decode()}")
+    obs.count("osd.launches", key=("kernel", bsz))
+    return out
 
 
 def osd0_decode(llr, pcm, syndrome):
-    """OSD-0 decode on ``llr``'s device.
+    """OSD-0 decode on ``llr``'s device: the kernel for CUDA tensors, the
+    plain version for CPU tensors (the module docstring).
 
     Args:
-      llr: [B, n] float32 reliabilities, sorted ascending (the least
-        reliable, most likely flipped columns first).
+      llr: [B, n] float32 reliabilities; the columns are taken in ascending
+        order (the least reliable, most likely flipped, first).
       pcm: [rank, n] 0/1, a full-rank parity-check basis (tensor or array).
       syndrome: [rank, B] 0/1, the pivot-reduced syndromes.
 
     Returns e_hat [B, n] int32.
     """
+    if llr.is_cuda:
+        return _launch_osd0(llr, pcm, syndrome)
+    return osd0_decode_plain(llr, pcm, syndrome)
+
+
+def osd0_decode_plain(llr, pcm, syndrome):
+    """``osd0_decode`` in plain PyTorch on any device, one Python step a
+    rank row over a [B, rank, n+1] uint8 table: the CPU's path and the
+    kernel's oracle.  Counts ``osd.launches`` ("plain") for card tensors."""
     bsz, n = llr.shape
     dev = llr.device
+    if llr.is_cuda:
+        obs.count("osd.launches", key=("plain", bsz))
     pcm = torch.as_tensor(pcm, device=dev).to(torch.uint8)
     rank = pcm.shape[0]
 

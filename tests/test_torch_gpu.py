@@ -13,6 +13,7 @@ bit, phi within rtol = atol = 1e-5 (probes.PHI_TOL).
 """
 
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -506,6 +507,164 @@ def test_osd0_on_card_equals_cpu(card, side, levels):
     out = osd0_decode(torch.as_tensor(llr, device=card), basis, syn.to(card))
     assert out.is_cuda and torch.equal(out.cpu(), cpu)
     assert np.array_equal(basis @ cpu.numpy().T % 2, syn.numpy())
+
+
+OSD_BASES = [("n882", "hx_basis"), ("n882", "hz_basis"), ("n1270", "hx_basis")]
+OSD_CODES = {"n882": tc.ghp_882_24, "n1270": tc.ghp_1270_28}
+_OSD_POOLS = {}
+
+
+def _osd_code(name):
+    key = ("code", name)
+    if key not in _OSD_POOLS:
+        _OSD_POOLS[key] = OSD_CODES[name]()
+    return _OSD_POOLS[key]
+
+
+def _k1_reliabilities(code, side, b, card, seed):
+    """BP4 min-sum 0.8 x 100 on K1 at p = 0.10, as the BP+OSD cell decodes:
+    the binary reliabilities [b, n] and pivot-reduced syndromes [rank, b]
+    that OSD takes on ``side``'s basis."""
+    from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
+    from feedback_gnn_tpu_torch.decoders.bp4 import quaternary_to_binary_llrs
+    from feedback_gnn_tpu_torch.decoders.cascade import prior_llr
+    from feedback_gnn_tpu_torch.ops.gf2mat import mod2_matmul
+
+    qc = tc.qc_pair_from_code(code)
+    n = code.hx.shape[1]
+    noise_x, noise_z = pauli_iid(torch.Generator(device=card).manual_seed(seed), *depolarizing_probs(0.10), n, b)
+    sx = mod2_matmul(torch.as_tensor(code.hx, device=card), noise_z)
+    sz = mod2_matmul(torch.as_tensor(code.hz, device=card), noise_x)
+    llrx, llry, llrz = bp4_qc.bp4_qc_marginals(qc, prior_llr(0.10, n, b, device=card), sx, sz, 100, "minsum", 0.8)
+    rel_x, rel_z = quaternary_to_binary_llrs(llrx, llry, llrz)
+    if side == "hx_basis":
+        return rel_z.T.contiguous(), sx[torch.as_tensor(code.pivot_hx, device=card)]
+    return rel_x.T.contiguous(), sz[torch.as_tensor(code.pivot_hz, device=card)]
+
+
+def _osd_pool(name, side, kind, b, card):
+    """``b`` samples of one kind on the card (cached), and the plain
+    version's solutions on the CPU of the samples ``_osd_checked`` names
+    for any batch up to ``b``: reliabilities tied at three levels with
+    -0.0 and +0.0 both at the middle one, continuous, or K1's at p = 0.10."""
+    key = (name, side, kind, b)
+    if key not in _OSD_POOLS:
+        from feedback_gnn_tpu_torch.decoders.osd import osd0_decode_plain
+
+        code = _osd_code(name)
+        basis = np.asarray(getattr(code, side))
+        rank, n = basis.shape
+        rng = np.random.default_rng([ord(c) for c in f"{name}{side}{kind}{b}"])
+        if kind == "k1":
+            llr, syn = _k1_reliabilities(code, side, b, card, seed=21)
+        else:
+            if kind == "tied":
+                llr = np.asarray([-0.0, 0.0, 1.5, -2.0], np.float32)[rng.choice(4, (b, n), p=[.25, .25, .3, .2])]
+            else:
+                llr = rng.normal(size=(b, n)).astype(np.float32)
+            syn = torch.as_tensor((basis @ rng.integers(0, 2, (n, b)) % 2).astype(np.int32), device=card)
+            llr = torch.as_tensor(llr, device=card)
+        idx = _osd_checked(b)
+        cpu = osd0_decode_plain(llr[idx].cpu(), basis, syn[:, idx].cpu())
+        _OSD_POOLS[key] = (basis, llr, syn, idx, cpu)
+    return _OSD_POOLS[key]
+
+
+def _osd_checked(b):
+    """The samples of a batch of ``b`` held to the CPU: the first 37 and 27
+    spread to the last (each sample's elimination is its own)."""
+    return np.unique(np.concatenate([np.arange(min(b, 37)), np.linspace(0, b - 1, 27).astype(np.int64)]))
+
+
+def _osd_kernel_vs_cpu(basis, llr, syn, idx, cpu, call=None):
+    """One kernel call on the card against the CPU's plain solutions of
+    ``idx``; every solution of the call against the basis; one launch."""
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode
+    from feedback_gnn_tpu_torch.ops.gf2mat import mod2_matmul
+
+    b = llr.shape[0]
+    obs.reset()
+    out = (call or osd0_decode)(llr, basis, syn)
+    torch.cuda.synchronize()
+    assert obs.snapshot()["keys"].get("osd.launches") == {("kernel", b): 1}
+    assert out.is_cuda and out.shape == (b, basis.shape[1]) and out.dtype == torch.int32
+    keep = idx[idx < b]
+    assert torch.equal(out[torch.as_tensor(keep, device=out.device)].cpu(), cpu[:keep.size])
+    assert torch.equal(mod2_matmul(torch.as_tensor(basis, device=out.device), out.T), syn.to(torch.int32))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tied", "continuous", "k1"])
+@pytest.mark.parametrize("b", [1, 37, 1024])
+@pytest.mark.parametrize("name,side", OSD_BASES)
+def test_osd0_kernel_equals_plain(card, name, side, b, kind):
+    """The OSD-0 kernel (csrc/osd0.cu) equals osd0_decode_plain on the CPU
+    bit for bit on both [[882,24]] bases and a [[1270,28]] basis, at 1, 37
+    and 1024 samples (the BP+OSD cell's sub-batch), on tied, continuous and
+    K1's reliabilities; every solution meets its syndrome."""
+    basis, llr, syn, idx, cpu = _osd_pool(name, side, kind, 1024, card)
+    _osd_kernel_vs_cpu(basis, llr[:b], syn[:, :b], idx, cpu)
+
+
+@pytest.mark.gpu
+def test_osd0_kernel_equals_plain_on_the_whole_batch(card):
+    """B = 20480, the BP2 path's call without a cap (a block a sample)."""
+    basis, llr, syn, idx, cpu = _osd_pool("n882", "hx_basis", "tied", 20480, card)
+    _osd_kernel_vs_cpu(basis, llr, syn, idx, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,side", OSD_BASES[1:])
+def test_osd0_kernel_takes_transposed_reliabilities(card, name, side):
+    """``models.py`` hands OSD the transpose of its [n, B] reliabilities."""
+    basis, llr, syn, idx, cpu = _osd_pool(name, side, "k1", 1024, card)
+    flipped = llr.T.contiguous().T
+    assert not flipped.is_contiguous()
+    _osd_kernel_vs_cpu(basis, flipped, syn, idx, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tied", "k1"])
+def test_osd0_kernel_under_the_unstable_sort_fault(card, kind):
+    """The benchmark's fault ``unstable_sort``: the columns flipped, a card
+    basis, solved and flipped back, against the same call on the CPU."""
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode, osd0_decode_plain
+
+    basis, llr, syn, idx, _ = _osd_pool("n882", "hz_basis", kind, 1024, card)
+
+    def flipped(fn, l, s):
+        pcm = torch.as_tensor(basis, device=l.device)
+        return fn(l.flip(-1), pcm.flip(-1), s).flip(-1)
+
+    cpu = flipped(osd0_decode_plain, llr[idx].cpu(), syn[:, idx].cpu())
+    _osd_kernel_vs_cpu(basis, llr, syn, idx, cpu, call=lambda l, b_, s: flipped(osd0_decode, l, s))
+    plain = osd0_decode_plain(llr[idx].cpu(), basis, syn[:, idx].cpu())
+    if kind == "tied":  # reversed ties change some solutions: the fault shows
+        assert not torch.equal(cpu, plain)
+
+
+@pytest.mark.gpu
+def test_osd0_kernel_shape_and_occupancy(card):
+    """The library's shared-memory bytes equal the wrapper's; [[882,24]]
+    keeps 4 blocks an SM, [[1270,28]] 2, without spills; a shape above
+    227 KB raises before any launch."""
+    from feedback_gnn_tpu_torch._build import load_kernels
+    from feedback_gnn_tpu_torch.decoders.osd import osd0_decode, shared_bytes
+
+    lib = load_kernels()
+    for rank, n in [(429, 882), (621, 1270), (20, 48), (1, 1), (1000, 2047), (1100, 1500)]:
+        want = shared_bytes(rank, n) if shared_bytes(rank, n) <= 232448 and (n + 32) // 32 <= 64 else -3
+        assert lib.fgt_osd0_shared_bytes(n, rank) == want, (rank, n)
+    for (rank, n), blocks in [((429, 882), 4), ((621, 1270), 2)]:
+        occ = (ctypes.c_int * 3)()
+        assert lib.fgt_osd0_occupancy(n, rank, occ) == 0
+        assert (occ[0], occ[2]) == (blocks, 0), list(occ)
+    big = np.zeros((1400, 1270), np.int32)
+    obs.reset()
+    with pytest.raises(ValueError, match="shared memory"):
+        osd0_decode(torch.zeros((2, 1270), device=card), big, torch.zeros((1400, 2), dtype=torch.int32, device=card))
+    assert obs.snapshot()["keys"].get("osd.launches") is None
 
 
 # ---- training: the K1 miners and the train step --------------------------------
