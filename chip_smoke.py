@@ -64,6 +64,9 @@ import time
 import numpy as np
 import torch
 
+# one yardstick: the K1 and K2 bounds and the card's peaks are the benchmark's
+from benchmark.counts import H100_BYTES, H100_F32_OPS, k1_bound_ms, k2_bound_ms
+
 DEADLINE_S = 1100  # a hang prints every thread's stack and exits non-zero
 
 # The main path: __graft_entry__.entry()'s configuration, checked against
@@ -144,24 +147,6 @@ K1_F32_HASHES = {
 }
 PREVIOUS_COUNTS = {"main path": (300, 4096), "bp2_path": (3143, 61440), "bp4_plain_path": (2139, 61440)}
 GRID_REPS = 10  # calls per plan of the launch-plan grid, in one CUDA graph
-# Work of one decode, for the bound: float32 operations per edge and
-# iteration (transcendentals counted as one each), read off csrc/bp4_qc.cu
-# and csrc/bp2_qc.cu (the CN side is qc_common.cuh's cn_node in both).
-VN_OPS_PER_EDGE = 12  # sum-add, two subs, lse_neg (8), sub
-VN_OPS_PER_NODE = 18  # marginals (4 adds), two softplus (7 each)
-CN_OPS_PER_EDGE = {
-    ("boxplus-phi", None): 24,  # sign, abs, 2 phi (8 each, tanh form), 5 mul/add
-    ("boxplus-phi", "tf"): 36,  # phi in the tf form: 14 each
-    ("boxplus-phi", "accurate"): 28,  # phi in the accurate form: 10 each
-    ("boxplus", None): 14,
-    ("minsum", None): 15,
-}
-# the bfloat16 message carry: the CN pass's rounding of each output (to
-# bfloat16 and back), added per edge and iteration to the float32 carry's
-CARRY_OPS_PER_EDGE = {"float32": 0, "bfloat16": 2}
-K2_VN_OPS_PER_EDGE = 2  # add to the total, subtract for the extrinsic
-H100_F32_OPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
-H100_BYTES = 3.35e12  # HBM3, H100 SXM data sheet
 # shared memory of all SMs: 128 B per clock per SM x 132 SMs x 1.98 GHz
 # (the boost clock), for the loop probes' on-chip bound
 H100_SMEM_BYTES = 128 * 132 * 1.98e9
@@ -316,34 +301,6 @@ CURRICULUM_ARTIFACTS = ("n882_easy.npz", "n882_coarse_16_16.npz", "n882_hard.npz
 
 def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
-
-
-def k1_bound_ms(qc, batch, iters, cn_type="boxplus-phi", phi_impl=None, msg_dtype="float32"):
-    """Least time of one decode on an H100: the larger of its bytes (LLRs
-    and syndromes read once, marginals written once) over the memory rate
-    and its f32 operations over the f32 rate."""
-    n, l = qc.n, qc.l
-    m = (qc.qx.mb + qc.qz.mb) * l
-    edges = (qc.qx.num_groups + qc.qz.num_groups) * l
-    nbytes = 4 * batch * (3 * n + m) + 4 * batch * 3 * n
-    cn_ops = CN_OPS_PER_EDGE[(cn_type, phi_impl)] + CARRY_OPS_PER_EDGE[msg_dtype]
-    per_iter = edges * (VN_OPS_PER_EDGE + cn_ops) + n * VN_OPS_PER_NODE + m
-    ops = batch * (iters * per_iter + edges + 4 * n)
-    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def k2_bound_ms(spec, batch, iters, cn_type):
-    """Least time of one K2 decode on an H100: the larger of its bytes
-    (logits and syndrome read once, marginal logits written once) over the
-    memory rate and its f32 operations over the f32 rate."""
-    n, m, edges = spec.nb * spec.l, spec.mb * spec.l, spec.num_edges
-    nbytes = 4 * batch * (n + m + n)
-    per_iter = edges * (K2_VN_OPS_PER_EDGE + CN_OPS_PER_EDGE[(cn_type, None)]) + m
-    # entry: clip (2) and negate per VN, 1 - 2s (2) per CN; exit: final sums, negate
-    ops = batch * (iters * per_iter + 3 * n + 2 * m + edges + n)
-    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def reset_counts():
@@ -643,7 +600,7 @@ def time_carry(codes, shapes, registers, device, card):
         g_ms, gf_ms = graph_ms(lambda: launch("bfloat16"), GRID_REPS), graph_ms(lambda: launch("float32"), GRID_REPS)
         p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi,
                                                              msg_dtype="bfloat16"), reps=2)
-        b_ms, b_by = k1_bound_ms(qc_s, batch, iters, phi_impl=phi, msg_dtype="bfloat16")
+        b_ms, b_by = k1_bound_ms(qc_s.qx, qc_s.qz, batch, iters, phi_impl=phi, msg_dtype="bfloat16")
         blocks, regs, spill = bp4_qc._occupancy(qc_s, "boxplus-phi", phi, plan, "bfloat16")
         key = ("bp4_qc_kernel", bp4_qc._kernel_codes("boxplus-phi", phi, plan.instance, "bfloat16"))
         print(f"K1 bfloat16 carry {label}: kernel {k_ms:.4f} ms (graph {g_ms:.4f}), float32 carry "
@@ -813,7 +770,7 @@ def compare_osd_k1(codes, device, card, K=OSD_K1):
     err = check_against_plain(label, bp4_qc.bp4_qc_marginals(*args), bp4_qc.bp4_qc_marginals_plain(*args))
     k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(*args), reps=5)
     p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(*args), reps=1)
-    b_ms, b_by = k1_bound_ms(qc, K["batch"], K["iters"], cn_type=K["cn_type"])
+    b_ms, b_by = k1_bound_ms(qc.qx, qc.qz, K["batch"], K["iters"], cn_type=K["cn_type"])
     print(f"K1 {label}: instance (DC, DV)={plan.instance}, {plan.regime} batch, {plan.threads} threads x "
           f"{plan.samples_per_block} samples per block; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
           f"{b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.1%} of the kernel's time) on {card}", flush=True)
@@ -1078,15 +1035,14 @@ def osd_capacity(flagged_rate, batch):
 
 
 class OsdRecorder:
-    """Stands in for osd0_decode where the OSD steps call it (models.py,
-    decoders/osd.py) and keeps the first ``keep`` calls' inputs and
+    """Stands in for osd0_decode where the OSD steps call it
+    (decoders/osd.py) and keeps the first ``keep`` calls' inputs and
     outputs (``calls``; ``first`` the first)."""
 
     def __init__(self, keep=1):
-        from feedback_gnn_tpu_torch import models
         from feedback_gnn_tpu_torch.decoders import osd
 
-        self.modules, self.real, self.keep, self.calls = (models, osd), osd.osd0_decode, keep, []
+        self.module, self.real, self.keep, self.calls = osd, osd.osd0_decode, keep, []
 
     @property
     def first(self):
@@ -1099,13 +1055,11 @@ class OsdRecorder:
         return out
 
     def __enter__(self):
-        for m in self.modules:
-            m.osd0_decode = self
+        self.module.osd0_decode = self
         return self
 
     def __exit__(self, *exc):
-        for m in self.modules:
-            m.osd0_decode = self.real
+        self.module.osd0_decode = self.real
 
 
 def osd_card_vs_cpu(label, rec, card):
@@ -1553,7 +1507,8 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
     Returns the rescue capacity at 0.02."""
     from dataclasses import replace
 
-    from feedback_gnn_tpu_torch.decoders.cascade import CascadeConfig, _capacity, sandwich_eval_step
+    from feedback_gnn_tpu_torch.decoders.cascade import CascadeConfig, sandwich_eval_step
+    from feedback_gnn_tpu_torch.decoders.compact import capacity
 
     graph, qc, params = codes["n882"]
     base = CascadeConfig(num_rounds=rounds, compact_fraction=R["compact"])
@@ -1570,7 +1525,7 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
         ms = (time.perf_counter() - t1) * 1e3
         counts = read_counts()
         stages = len(rescue.split(",")) if rescue else 0
-        print(f"rescue {rescue} (capacity {_capacity(fraction, R['batch'], tile)}) p={R['p']} "
+        print(f"rescue {rescue} (capacity {capacity(fraction, R['batch'], tile)}) p={R['p']} "
               f"B={R['batch']}: flagged={flagged} logical={logical} overflow={overflow}, {ms:.3f} ms, "
               f"launches={counts} on {card}")
         if counts != expected_counts(K1=(1 + rounds) * (1 + stages), GNN=rounds * (1 + stages)):
@@ -1585,7 +1540,7 @@ def run_rescue(codes, device, card, R=RESCUE, rounds=EVALUATE["rounds"]):
         raise AssertionError("rescue: overflow at rescue_fraction 0.02")
     if not (under[1] > 0 and under[0] <= f_none):
         raise AssertionError(f"rescue at one sample of capacity: overflow {under[1]}, flagged {under[0]}")
-    return _capacity(0.02, R["batch"], 128)
+    return capacity(0.02, R["batch"], 128)
 
 
 def run_gather_cascade(device, card, G=GATHER, rounds=EVALUATE["rounds"]):
@@ -1817,7 +1772,7 @@ def run_train(codes, code882, device, card, T=TRAIN):
     check_against_plain(f"n882 B={T['mine_batch']} iters={T['iters']} (miners)", out,
                         bp4_qc.bp4_qc_marginals_plain(*k_args))
     p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(*k_args), reps=2)
-    b_ms, b_by = k1_bound_ms(qc, T["mine_batch"], T["iters"])
+    b_ms, b_by = k1_bound_ms(qc.qx, qc.qz, T["mine_batch"], T["iters"])
     print(f"K1 n882 B={T['mine_batch']} iters={T['iters']} (miners): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
           f"ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
     del out
@@ -2265,7 +2220,7 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
                             bp4_qc.bp4_qc_marginals_plain(qc, llr, ksx, ksz, iters))
         k_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals(qc, llr, ksx, ksz, iters), reps=10)
         p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc, llr, ksx, ksz, iters), reps=2)
-        b_ms, b_by = k1_bound_ms(qc, bs, iters)
+        b_ms, b_by = k1_bound_ms(qc.qx, qc.qz, bs, iters)
         out["k1"][iters] = (k_ms, p_ms, b_ms, b_by)
         print(f"K1 {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
     return out
@@ -2671,13 +2626,13 @@ def main() -> int:
     # parallel's ranks give it
     t0 = time.perf_counter()
     from feedback_gnn_tpu_torch.cli import bench_scaling
-    from feedback_gnn_tpu_torch.decoders.cascade import _capacity
+    from feedback_gnn_tpu_torch.decoders.compact import capacity
 
     E = EVALUATE
-    cap1 = _capacity(cfg.compact_fraction, settings.batch, cfg.qc_batch_tile)
-    cap2 = _capacity(cfg.round_fraction, settings.batch, cfg.qc_batch_tile)
-    ecap1 = _capacity(E["compact"], E["batch"], 128)
-    ecap2 = _capacity(E["rounds_cap"], E["batch"], 128)
+    cap1 = capacity(cfg.compact_fraction, settings.batch, cfg.qc_batch_tile)
+    cap2 = capacity(cfg.round_fraction, settings.batch, cfg.qc_batch_tile)
+    ecap1 = capacity(E["compact"], E["batch"], 128)
+    ecap2 = capacity(E["rounds_cap"], E["batch"], 128)
     local = PARALLEL["batch"] // 2  # (a) and (c): the evaluate cascade on each of 2 data ranks
     scale = bench_scaling._parser().parse_args(PARALLEL["scaling"])  # no compaction, no prepass
     shapes = [  # (code, batch, iterations, phi form, time the plan grid)
@@ -2686,8 +2641,8 @@ def main() -> int:
         ("n1270", cap2, 16, None, True),
         ("n882", E["batch"], E["prepass"], None, False), ("n882", ecap1, 64, None, False),
         ("n882", ecap2, 16, None, False),
-        ("n882", local, E["prepass"], None, False), ("n882", _capacity(E["compact"], local, 128), 64, None, False),
-        ("n882", _capacity(E["rounds_cap"], local, 128), 16, None, False),
+        ("n882", local, E["prepass"], None, False), ("n882", capacity(E["compact"], local, 128), 64, None, False),
+        ("n882", capacity(E["rounds_cap"], local, 128), 16, None, False),
         (scale.code, scale.local_batch, scale.iters1, None, False),
         (scale.code, scale.local_batch, scale.iters2, None, False),
         ("n882", rescue_cap, 64, "tf", False), ("n882", rescue_cap, 16, "tf", False),
@@ -2726,7 +2681,7 @@ def main() -> int:
             g_ms = graph_ms(lambda: launch(plan), reps=GRID_REPS)
         del ref
         p_ms = time_ms(lambda: bp4_qc.bp4_qc_marginals_plain(qc_s, llr, sx, sz, iters, phi_impl=phi), reps=2)
-        b_ms, b_by = k1_bound_ms(qc_s, batch, iters, phi_impl=phi)
+        b_ms, b_by = k1_bound_ms(qc_s.qx, qc_s.qz, batch, iters, phi_impl=phi)
         timing[(nm, batch, iters, phi)] = (k_ms, p_ms, b_ms, b_by)
         old = PREVIOUS_K1_MS.get((nm, batch, iters)) if phi is None else None
         print(f"K1 {label}: kernel {k_ms:.4f} ms ("

@@ -9,7 +9,7 @@ it, through the gather decoder ``bp4_decode`` (plain PyTorch).
 
 Flagged-sample compaction (``compact_fraction``, ``stage1_prepass``,
 ``round_fraction``) gathers the still-flagged samples into a dense
-sub-batch with a stable sort, exactly as the JAX package does; per-sample
+sub-batch with a stable sort (``compact.py``), as the JAX package does; per-sample
 results equal the uncompacted cascade while no capacity overflows.  The
 rescue stage (``rescue_phi``) re-decodes the samples still flagged after
 the cascade with other phi formulations and adopts syndrome-consistent
@@ -35,7 +35,6 @@ samples against its capacity (``_fill``).
 
 from __future__ import annotations
 
-import math
 import warnings
 from dataclasses import dataclass, replace
 from typing import Any, Sequence
@@ -50,6 +49,7 @@ from ..parallel.collectives import por, psum
 from . import cn_update
 from .bp4 import BP4Result, bp4_decode
 from .bp4_qc import bp4_decode_qc, qc_supported
+from .compact import capacity, flagged_first, merge, overflow
 from .gnn_feedback import feedback_gnn_apply
 
 __all__ = ["CascadeConfig", "sandwich_decode", "sandwich_eval_step", "prior_llr", "data_seed"]
@@ -114,10 +114,6 @@ def prior_llr(p0, n, batch, n_pad=None, device=None):
     return torch.nn.functional.pad(body, (0, 0, 0, n_pad - n))
 
 
-def _capacity(fraction, b, tile):
-    return min(b, -(-int(math.ceil(fraction * b)) // tile) * tile)
-
-
 def _take(t, idx):
     return t.index_select(-1, idx)
 
@@ -126,20 +122,12 @@ def _take_res(res: BP4Result, idx):
     return BP4Result(*[_take(f, idx) if f is not None else None for f in res])
 
 
-def _fill(level, flags, capacity):
+def _fill(level, flags, cap):
     """While tracing is on, count a level's flagged samples (on the device)
     against its capacity: ``cascade.flagged.<level>``, ``cascade.capacity.<level>``."""
     if obs.on():
         obs.count_device(f"cascade.flagged.{level}", flags)
-        obs.count(f"cascade.capacity.{level}", capacity)
-
-
-def _flagged_first(flags, cap):
-    """The first ``cap`` sample indices, flagged samples first in their
-    original order (stable sort), and which of those are flagged."""
-    order = torch.argsort(torch.logical_not(flags).to(torch.int8), stable=True)
-    idx = order[:cap]
-    return idx, flags[idx]
+        obs.count(f"cascade.capacity.{level}", cap)
 
 
 def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, llr0,
@@ -229,7 +217,7 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
             for impl in cfg.rescue_phi.split(","):
                 x_hat, z_hat, r_ov_mask = _ensemble_rescue(
                     graph, gnn_params_list, cfg, impl.strip(), llr0, syndrome_x, syndrome_z,
-                    gt_sx, gt_sz, x_hat, z_hat, qc=qc, main_phi_impl=phi_impl)
+                    gt_sx, gt_sz, x_hat, z_hat, tile, qc=qc, main_phi_impl=phi_impl)
                 ov_mask = torch.maximum(ov_mask, r_ov_mask)
         if with_overflow:
             with obs.span("cascade.compact"):
@@ -249,10 +237,10 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
     # ---- flagged-sample compaction ----
     with obs.span("cascade.compact"):
         gt = torch.cat([gt_sx, gt_sz], dim=0)  # rows: [Hz rows; Hx rows]
-        cap = _capacity(cfg.compact_fraction, b, tile)
+        cap = capacity(cfg.compact_fraction, b, tile)
         flags0 = syndromes_differ(x_hat, z_hat, gt)
         _fill("level1", flags0, cap)
-        idx, valid = _flagged_first(flags0, cap)
+        idx, valid = flagged_first(flags0, cap)
         syn_x_s, syn_z_s, gt_s = _take(syndrome_x, idx), _take(syndrome_z, idx), _take(gt, idx)
         if prepass_active:
             llr_s = _take(llr0, idx)
@@ -270,19 +258,16 @@ def sandwich_decode(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig, l
             z_s = torch.where(valid[None, :], sub_res.z_hat, _take(z_hat, idx))
 
         # samples flagged after stage 1 but beyond the level-1 capacity
-        covered = torch.zeros(b, dtype=torch.bool, device=dev).index_copy(0, idx, valid)
-        ov_mask = (flags0 & ~covered).to(torch.int32)
+        ov_mask = overflow(flags0, idx, valid).to(torch.int32)
 
         if cfg.round_fraction is not None:
             # level 2: the GNN rounds act only on samples still flagged after
             # the full stage-1 schedule
-            cap2 = min(cap, _capacity(cfg.round_fraction, b, tile))
+            cap2 = min(cap, capacity(cfg.round_fraction, b, tile))
             flags1 = syndromes_differ(x_s, z_s, gt_s) & valid
             _fill("level2", flags1, cap2)
-            idx2, valid2 = _flagged_first(flags1, cap2)
-            covered2 = torch.zeros(cap, dtype=torch.bool, device=dev).index_copy(0, idx2, valid2)
-            sub_ov = flags1 & ~covered2
-            ov_mask = ov_mask.scatter_reduce(0, idx, sub_ov.to(torch.int32), "amax")
+            idx2, valid2 = flagged_first(flags1, cap2)
+            ov_mask = ov_mask.scatter_reduce(0, idx, overflow(flags1, idx2, valid2).to(torch.int32), "amax")
             rounds_in = (_take_res(sub_res, idx2), _take(x_s, idx2), _take(z_s, idx2),
                          _take(syn_x_s, idx2), _take(syn_z_s, idx2), _take(gt_s, idx2), valid2)
         else:
@@ -370,13 +355,13 @@ def sandwich_eval_step(graph, gnn_params_list: Sequence[Any], cfg: CascadeConfig
 
 
 def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x, syndrome_z,
-                     gt_sx, gt_sz, x_hat, z_hat, qc=None, main_phi_impl=None):
+                     gt_sx, gt_sz, x_hat, z_hat, tile, qc=None, main_phi_impl=None):
     """Re-decode the still-flagged samples with the ``rescue_impl`` phi
     formulation and adopt the rescue estimate where it is syndrome-
-    consistent (CascadeConfig.rescue_phi).  Warns when the rescue
-    formulation equals the main one (``main_phi_impl``, None = the
-    cn_update default): a guaranteed no-op that still costs a sub-batch
-    cascade per batch.
+    consistent (CascadeConfig.rescue_phi), in a sub-batch whose capacity
+    is rounded up to ``tile``.  Warns when the rescue formulation equals
+    the main one (``main_phi_impl``, None = the cn_update default): a
+    guaranteed no-op that still costs a sub-batch cascade per batch.
 
     Returns (x_hat, z_hat, ov_mask [B] int32), ov_mask marking the
     still-flagged samples beyond the rescue capacity.
@@ -393,15 +378,12 @@ def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x,
             stacklevel=3,
         )
     hz, hx = graph.hz, graph.hx
-    b = x_hat.shape[-1]
-    tile = cfg.qc_batch_tile if qc is not None else 8
-    cap = _capacity(cfg.rescue_fraction, b, tile)
+    cap = capacity(cfg.rescue_fraction, x_hat.shape[-1], tile)
 
     # still flagged after the cascade: estimate syndromes != ground truth
     flags = (mod2_matmul(hz, x_hat) != gt_sx).any(dim=0) | (mod2_matmul(hx, z_hat) != gt_sz).any(dim=0)
-    idx, valid = _flagged_first(flags, cap)
-    covered = torch.zeros(b, dtype=torch.bool, device=flags.device).index_copy(0, idx, valid)
-    ov_mask = (flags & ~covered).to(torch.int32)
+    idx, valid = flagged_first(flags, cap)
+    ov_mask = overflow(flags, idx, valid).to(torch.int32)
 
     syn_x_s, syn_z_s = _take(syndrome_x, idx), _take(syndrome_z, idx)
     gt_sx_s, gt_sz_s = _take(gt_sx, idx), _take(gt_sz, idx)
@@ -412,7 +394,5 @@ def _ensemble_rescue(graph, gnn_params_list, cfg, rescue_impl, llr0, syndrome_x,
                              gt_sx_s, gt_sz_s, qc=qc, phi_impl=rescue_impl)
 
     converged = (mod2_matmul(hz, rx) == gt_sx_s).all(dim=0) & (mod2_matmul(hx, rz) == gt_sz_s).all(dim=0)
-    adopt = (valid & converged)[None, :]
-    x_hat = x_hat.index_copy(1, idx, torch.where(adopt, rx, _take(x_hat, idx)))
-    z_hat = z_hat.index_copy(1, idx, torch.where(adopt, rz, _take(z_hat, idx)))
-    return x_hat, z_hat, ov_mask
+    adopt = valid & converged
+    return merge(x_hat, idx, rx, adopt), merge(z_hat, idx, rz, adopt), ov_mask

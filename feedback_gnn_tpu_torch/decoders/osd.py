@@ -25,17 +25,17 @@ counter ``osd.launches`` (``obs``; always on) counts the calls on the card,
 keyed by path (``"kernel"``, or ``"plain"`` where the plain version itself
 is called with card tensors) and batch.
 
-``bp_osd_correct`` runs OSD on the BP-flagged samples; with ``compact_cap``
-it first gathers them into a dense sub-batch of that size (stable sort,
-flagged first), and flagged samples beyond the capacity keep their BP
-estimate and are counted as overflow.
+``osd0_on_flagged`` runs OSD on the BP-flagged samples gathered flagged-first
+(``compact.py``) into a sub-batch, for both sides in ``bp_osd_correct`` and one
+in BP2 + OSD-0; flagged samples beyond the capacity keep their BP estimate.
 
 Spans (obs.py): ``osd.flag`` (the flag test, the binary reliabilities and
 the pivot-reduced syndromes), ``osd.compact`` (the flagged-first gather
 and the scatter back) and ``osd.eliminate`` (each ``osd0_decode`` call,
-attribute ``side`` "x" or "z").  Counters while tracing: ``osd.flagged``
-(flagged samples, summed on the device) and ``osd.capacity`` (the samples
-OSD decodes: the sub-batch, or the whole batch without a cap).
+attribute ``side``: "x" or "z", "bsc" for BP2 + OSD-0's one side).
+Counters while tracing: ``osd.flagged`` (flagged samples, summed on the
+device) and ``osd.capacity`` (the samples OSD decodes: the sub-batch, or
+the whole batch without a cap).
 """
 
 from __future__ import annotations
@@ -45,10 +45,15 @@ import torch
 from .. import obs
 from ..ops.gf2mat import mod2_matmul
 from .bp4 import quaternary_to_binary_llrs
-from .cascade import _flagged_first
+from .compact import flagged_first, merge
 from .graph_ops import pad_rows_to
 
-__all__ = ["osd0_decode", "osd0_decode_plain", "pack_columns", "shared_bytes", "bp_osd_correct"]
+__all__ = ["osd0_decode", "osd0_decode_plain", "pack_columns", "shared_bytes", "osd0_on_flagged",
+           "bp_osd_correct"]
+
+# benchmark/osd.py's recorder patches this name to capture each batch's
+# sub-batch, so osd0_on_flagged calls the compaction through it
+_flagged_first = flagged_first
 
 SHARED_LIMIT = 232_448  # bytes of shared memory a block can have on sm_90 (227 KB)
 MAX_WORDS = 64  # 32-bit words of a table row the kernel takes (two a lane)
@@ -174,6 +179,31 @@ def osd0_decode_plain(llr, pcm, syndrome):
     return e_sorted.gather(1, inv_sort)
 
 
+def osd0_on_flagged(flagged, compact_cap: int | None, sides):
+    """OSD-0 on the ``flagged`` [B] samples gathered flagged-first into a
+    sub-batch of ``compact_cap`` (None: the batch), one ``osd0_decode`` a
+    side in order.  A side is (name, estimate [rows, B] int32, reliabilities
+    [n, B], basis [rank, n], pivot-reduced syndrome [rank, B]).  Returns the
+    sides' estimates with OSD's solutions merged in where the sub-batch is
+    flagged, and the 0-d int32 count of flagged samples it leaves out."""
+    cap = flagged.shape[0] if compact_cap is None else min(flagged.shape[0], int(compact_cap))
+    if obs.on():
+        obs.count_device("osd.flagged", flagged)
+        obs.count("osd.capacity", cap)
+    with obs.span("osd.compact"):
+        idx, valid = _flagged_first(flagged, cap)
+        overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
+    out = []
+    for side, estimate, llr, basis, syndrome in sides:
+        with obs.span("osd.compact"):
+            llr_s, syn_s = llr.T[idx], syndrome[:, idx]
+        with obs.span("osd.eliminate", side=side):
+            sol = osd0_decode(llr_s, basis, syn_s)
+        with obs.span("osd.compact"):
+            out.append(merge(estimate, idx, pad_rows_to(sol.T, estimate.shape[0]), valid))
+    return out, overflow
+
+
 def bp_osd_correct(graph, bp_result, noise_x, noise_z, pivot_hx, pivot_hz, hx_basis, hz_basis,
                    compact_cap: int | None = None):
     """BP4 + OSD-0 correction step: OSD replaces the BP estimate of every
@@ -207,36 +237,6 @@ def bp_osd_correct(graph, bp_result, noise_x, noise_z, pivot_hx, pivot_hz, hx_ba
         # pivot-reduced syndromes of the true noise
         red_sx = mod2_matmul(hx, noise_z)[torch.as_tensor(pivot_hx, device=dev)]
         red_sz = mod2_matmul(hz, noise_x)[torch.as_tensor(pivot_hz, device=dev)]
-    cap = flagged.shape[0] if compact_cap is None else min(flagged.shape[0], int(compact_cap))
-    if obs.on():
-        obs.count_device("osd.flagged", flagged)
-        obs.count("osd.capacity", cap)
-
-    if compact_cap is not None:
-        with obs.span("osd.compact"):
-            idx, valid = _flagged_first(flagged, cap)
-            llrz_s, red_sx_s = osd_llrz.T[idx], red_sx[:, idx]
-            llrx_s, red_sz_s = osd_llrx.T[idx], red_sz[:, idx]
-        with obs.span("osd.eliminate", side="z"):
-            z_osd = osd0_decode(llrz_s, hx_basis, red_sx_s)
-        with obs.span("osd.eliminate", side="x"):
-            x_osd = osd0_decode(llrx_s, hz_basis, red_sz_s)
-        with obs.span("osd.compact"):
-            z_osd, x_osd = pad_rows_to(z_osd.T, graph.n_pad), pad_rows_to(x_osd.T, graph.n_pad)
-            upd = valid[None, :]
-            x_hat = bp_result.x_hat.index_copy(1, idx, torch.where(upd, x_osd, bp_result.x_hat[:, idx]))
-            z_hat = bp_result.z_hat.index_copy(1, idx, torch.where(upd, z_osd, bp_result.z_hat[:, idx]))
-            # flagged samples beyond the capacity keep their BP estimate: not
-            # the reference's result, so the caller must see the count
-            overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
-        return x_hat, z_hat, flagged, overflow
-
-    with obs.span("osd.eliminate", side="z"):
-        z_osd = osd0_decode(osd_llrz.T, hx_basis, red_sx)
-    with obs.span("osd.eliminate", side="x"):
-        x_osd = osd0_decode(osd_llrx.T, hz_basis, red_sz)
-    with obs.span("osd.compact"):
-        z_osd, x_osd = pad_rows_to(z_osd.T, graph.n_pad), pad_rows_to(x_osd.T, graph.n_pad)
-        x_hat = torch.where(flagged[None, :], x_osd, bp_result.x_hat)
-        z_hat = torch.where(flagged[None, :], z_osd, bp_result.z_hat)
-    return x_hat, z_hat, flagged, torch.zeros((), dtype=torch.int32, device=dev)
+    (z_hat, x_hat), overflow = osd0_on_flagged(flagged, compact_cap, [
+        ("z", bp_result.z_hat, osd_llrz, hx_basis, red_sx), ("x", bp_result.x_hat, osd_llrx, hz_basis, red_sz)])
+    return x_hat, z_hat, flagged, overflow

@@ -36,10 +36,9 @@ from .decoders.bp2_qc import bp2_qc_logits
 from .decoders.bp4 import bp4_decode
 from .decoders.bp4_qc import bp4_decode_qc
 from .decoders.cascade import prior_llr, sandwich_eval_step  # noqa: F401
-from .decoders.cascade import _flagged_first
 from .decoders.gnn_full import gnn_bp4_apply
 from .decoders.graph_ops import pad_rows_to
-from .decoders.osd import bp_osd_correct, osd0_decode
+from .decoders.osd import bp_osd_correct, osd0_on_flagged
 from .ops.gf2mat import mod2_matmul
 
 __all__ = [
@@ -241,21 +240,11 @@ def bp2_osd_count(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, noise, p, n
     # OSD on the soft output, in the "true llr" convention
     osd_llr = -res.logits[:n]
     reduced_s = syndrome[torch.as_tensor(pivot_pcm, device=dev)]
-    if osd_compact_cap is not None:
-        cap = min(batch, int(osd_compact_cap))
-        idx, valid = _flagged_first(flagged, cap)
-        osd_sub = osd0_decode(osd_llr.T[idx], pcm_basis, reduced_s[:, idx]).T  # [n, cap]
-        upd = torch.where(valid[None, :], osd_sub, noise_hat[:, idx])
-        noise_final = noise_hat.index_copy(1, idx, upd)
-        osd_overflow = flagged.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
-    else:
-        noise_final = torch.where(flagged[None, :], osd0_decode(osd_llr.T, pcm_basis, reduced_s).T,
-                                  noise_hat)
+    (noise_final,), overflow = osd0_on_flagged(flagged, osd_compact_cap,
+                                               [("bsc", noise_hat, osd_llr, pcm_basis, reduced_s)])
     ls_hat = mod2_matmul(logical_pcm, noise ^ noise_final)
-    logical = (ls_hat != 0).any(dim=0).sum(dtype=torch.int32)
-    if osd_compact_cap is not None:
-        return flagged.sum(dtype=torch.int32), logical, osd_overflow
-    return flagged.sum(dtype=torch.int32), logical
+    out = (flagged.sum(dtype=torch.int32), (ls_hat != 0).any(dim=0).sum(dtype=torch.int32))
+    return out + (overflow,) if osd_compact_cap is not None else out
 
 
 def bp2_osd_eval_step(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, generator: torch.Generator,

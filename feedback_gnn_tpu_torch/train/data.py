@@ -30,6 +30,7 @@ from ..channels.pauli import pauli_fixed_weight, pauli_fixed_weight_traced
 from ..decoders.bp4 import bp4_decode
 from ..decoders.bp4_qc import bp4_decode_qc
 from ..decoders.cascade import prior_llr
+from ..decoders.compact import flagged_first
 from ..decoders.gnn_feedback import feedback_gnn_apply
 from ..ops.gf2mat import mod2_matmul
 from .trainer import _pad_noise, _syndromes
@@ -50,17 +51,6 @@ def _flagged_after(graph, x_hat, z_hat, noise_x, noise_z):
     sx = mod2_matmul(graph.hz, _pad_noise(graph, noise_x) ^ x_hat)
     sz = mod2_matmul(graph.hx, _pad_noise(graph, noise_z) ^ z_hat)
     return (sx != 0).any(dim=0) | (sz != 0).any(dim=0)
-
-
-def _compact_failures(graph, noise_x, noise_z, flagged, cap: int):
-    """The flagged samples packed to the front in their order (a stable
-    sort), cut to ``cap`` columns: (nx [n, cap] uint8, nz, kept), ``kept``
-    the 0-d count of valid columns."""
-    order = torch.argsort(torch.logical_not(flagged).to(torch.int8), stable=True)
-    idx = order[:cap]
-    kept = flagged.sum().clamp_max(cap).to(torch.int32)
-    n = graph.n
-    return noise_x[:n].to(torch.uint8)[:, idx], noise_z[:n].to(torch.uint8)[:, idx], kept
 
 
 def _make_run_bp(graph, qc, need_logits: bool):
@@ -108,10 +98,17 @@ def _prepare(graph, p0, noise_x, noise_z):
 
 
 def _finish(graph, res, noise_x, noise_z, compact_cap):
+    """(noise_x [n, B], noise_z, flagged [B]); with ``compact_cap`` the
+    flagged samples packed to the front in their order (``flagged_first``),
+    cut to ``compact_cap`` columns: (nx [n, cap] uint8, nz, kept), ``kept``
+    the 0-d count of valid columns."""
     flagged = _flagged_after(graph, res.x_hat, res.z_hat, noise_x, noise_z)
-    if compact_cap is not None:
-        return _compact_failures(graph, noise_x, noise_z, flagged, compact_cap)
-    return noise_x[: graph.n], noise_z[: graph.n], flagged
+    n = graph.n
+    if compact_cap is None:
+        return noise_x[:n], noise_z[:n], flagged
+    idx, _ = flagged_first(flagged, compact_cap)
+    kept = flagged.sum().clamp_max(compact_cap).to(torch.int32)
+    return noise_x[:n].to(torch.uint8)[:, idx], noise_z[:n].to(torch.uint8)[:, idx], kept
 
 
 def make_bp_failure_miner(graph, num_iter=64, p0=0.05, cn_type="boxplus-phi", wt_max=None,
@@ -120,7 +117,7 @@ def make_bp_failure_miner(graph, num_iter=64, p0=0.05, cn_type="boxplus-phi", wt
     iterations (the reference's BP4_Error_Model).  ``wt_max``: one draw of
     wt_max positions serves every weight up to it (the sampler masks the
     tail); ``compact_cap``: pack the flagged samples on the device (see
-    ``_compact_failures``); ``qc``: run BP on the fused QC decode."""
+    ``_finish``); ``qc``: run BP on the fused QC decode."""
     run_bp = _make_run_bp(graph, qc, need_logits=False)
 
     @torch.no_grad()

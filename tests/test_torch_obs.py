@@ -24,6 +24,7 @@ import feedback_gnn_tpu_torch.codes as tc
 from feedback_gnn_tpu_torch import _build, obs
 from feedback_gnn_tpu_torch.decoders import bp2_qc, bp4_qc
 from feedback_gnn_tpu_torch.decoders import cascade as tcas
+from feedback_gnn_tpu_torch.decoders.compact import capacity
 from feedback_gnn_tpu_torch.decoders.gnn_feedback import load_weights
 from feedback_gnn_tpu_torch.entry import WEIGHTS
 from feedback_gnn_tpu_torch.ops import mod2_matmul
@@ -251,7 +252,7 @@ def test_flagged_counters_equal_the_recomputed_flags(gb48, monkeypatch):
     flagged after the decodes before it; each capacity its sub-batch."""
     graph, qc, params = gb48
     flags, decodes = [], []
-    first, decode = tcas._flagged_first, tcas.bp4_decode_qc
+    first, decode = tcas.flagged_first, tcas.bp4_decode_qc
 
     def flagged_first(f, cap):
         out = first(f, cap)
@@ -263,7 +264,7 @@ def test_flagged_counters_equal_the_recomputed_flags(gb48, monkeypatch):
         decodes.append((syn_x, syn_z, res))
         return res
 
-    monkeypatch.setattr(tcas, "_flagged_first", flagged_first)
+    monkeypatch.setattr(tcas, "flagged_first", flagged_first)
     monkeypatch.setattr(tcas, "bp4_decode_qc", bp)
     cfg = replace(CFG, num_iter1=16, num_iter2=16)
     batch, rounds = 512, cfg.num_rounds
@@ -272,8 +273,8 @@ def test_flagged_counters_equal_the_recomputed_flags(gb48, monkeypatch):
     counters = obs.snapshot()["counters"]
 
     (flags0, _), (flags1, valid2) = flags
-    cap = tcas._capacity(cfg.compact_fraction, batch, cfg.qc_batch_tile)
-    cap2 = min(cap, tcas._capacity(cfg.round_fraction, batch, cfg.qc_batch_tile))
+    cap = capacity(cfg.compact_fraction, batch, cfg.qc_batch_tile)
+    cap2 = min(cap, capacity(cfg.round_fraction, batch, cfg.qc_batch_tile))
     errors, in_rounds = valid2, 0
     for syn_x, syn_z, res in decodes[2:]:  # the rounds' decodes, after the prepass and level 1
         in_rounds += int(errors.sum())
