@@ -102,6 +102,10 @@ OSD_BP4 = dict(p=0.10, batch=20480, ref=4.02e-4, target=100, max_mc_iter=40)
 OSD_CHECK_SAMPLES = 64
 # OSD-0's kernel against its plain version at the BP+OSD cell's shapes
 OSD_KERNEL = dict(p=0.10, batch=20480, cap=1024, seed=31)
+# the GF(2) product's kernel against its plain version and torch.matmul at the
+# cells' full-batch shapes: both codes' syndrome and accounting matrices
+GF2 = dict(codes=("n1270", "n882"), matrices=("hx", "hz", "hx_perp", "hz_perp"), batch=20480, p=0.05, seed=17,
+           reps=20)
 # K1 and K2 against their plain versions: bit for bit (the plain versions
 # repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
@@ -1149,6 +1153,73 @@ def osd_kernel_vs_plain(device, card, spec=OSD_KERNEL):
         row["graph_ms"] += launch_ms
         row["plain_ms"] += plain_ms
         row["bound_ms"] += bound_ms
+    return row
+
+
+def run_gf2(device, card, G=GF2):
+    """The GF(2) product's kernel (csrc/gf2mat.cu) at the cells' full-batch
+    shapes: each code's hx, hz, hx_perp and hz_perp on a [n_pad, B] int32
+    batch.  Each must equal mod2_matmul_plain bit for bit, through
+    ``mod2_matmul`` and launched bare, and count one ``gf2.launches`` a call
+    (path ``kernel``).  Timed in CUDA graphs of ``reps`` calls: the kernel
+    through ``mod2_matmul`` and launched bare, the plain version (float32
+    copies, matmul, cast) and ``torch.matmul`` of the float32 operands
+    alone (the library yardstick), beside the bytes bound (v read once, the
+    int32 result written once, at 3.35 TB/s) and the kernel's occupancy.
+    Returns the kernels line's row: [[1270,28]]'s hx product."""
+    from feedback_gnn_tpu_torch import obs
+    from feedback_gnn_tpu_torch._build import load_kernels
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.config import build_code
+    from feedback_gnn_tpu_torch.ops import gf2mat
+
+    lib = load_kernels()
+    b = G["batch"]
+    row = None
+    for name in G["codes"]:
+        graph = QuantumGraph.from_code(build_code(name), stage_mode=True).to(device)
+        gen = torch.Generator(device=device).manual_seed(G["seed"])
+        v = (torch.rand((graph.n_pad, b), generator=gen, device=device) < G["p"]).to(torch.int32)
+        for mat in G["matrices"]:
+            h = getattr(graph, mat)
+            m, n = h.shape
+            obs.reset()
+            out = gf2mat.mod2_matmul(h, v)
+            keys = obs.snapshot()["keys"].get("gf2.launches", {})
+            plain = gf2mat.mod2_matmul_plain(h, v)
+            ok = torch.equal(out, plain) and keys == {("kernel", m, n, b): 1}
+            slices, cols = gf2mat.row_lists(h)
+            bare = torch.full_like(out, -1)
+
+            def launch():
+                err = lib.fgt_gf2_matmul_launch(v.data_ptr(), v.stride(0), 4, slices.data_ptr(), cols.data_ptr(),
+                                                bare.data_ptr(), m, n, b, torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"gf2 launch: {lib.fgt_cuda_error_string(err).decode()}")
+
+            launch_ms = graph_ms(launch, G["reps"])
+            ok = ok and torch.equal(bare, plain)
+            occ = (ctypes.c_int * 3)()
+            occ_err = lib.fgt_gf2_occupancy(4, n, occ)
+            kernel_ms = graph_ms(lambda: gf2mat.mod2_matmul(h, v), G["reps"])
+            eager_ms = time_ms(lambda: gf2mat.mod2_matmul(h, v), G["reps"])
+            plain_ms = graph_ms(lambda: gf2mat.mod2_matmul_plain(h, v), G["reps"])
+            hf, vf = h.to(torch.float32), v.to(torch.float32)
+            library_ms = graph_ms(lambda: torch.matmul(hf, vf), G["reps"])
+            bound_ms = 1e3 * (n * b * v.element_size() + m * b * 4) / H100_BYTES
+            weights = (h != 0).sum(dim=1)
+            print(f"gf2 {name} {mat} [{m}, {n}] x [{n}, {b}] ({int(weights.sum())} nonzeros, row weight up to "
+                  f"{int(weights.max())}; {cols.shape[0]} slots in the row lists): kernel == plain "
+                  f"{'yes' if ok else 'NO'}; mod2_matmul {kernel_ms * 1e3:.2f} us (graph; eager {eager_ms * 1e3:.2f}; "
+                  f"the launch alone {launch_ms * 1e3:.2f}), bound {bound_ms * 1e3:.2f} us (bytes; "
+                  f"{100 * bound_ms / kernel_ms:.1f} % of it), plain {plain_ms * 1e3:.2f} us, torch.matmul "
+                  f"{library_ms * 1e3:.2f} us; occupancy {list(occ) if occ_err == 0 else occ_err} (blocks an SM, "
+                  f"registers, spill bytes) on {card}", flush=True)
+            if not ok:
+                raise AssertionError(f"gf2 {name} {mat}: the kernel differs from the plain version or miscounts")
+            if row is None:
+                row = dict(shape=f"[[1270,28]] hx [{m}, {n}] x B={b}", ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
     return row
 
 
@@ -2558,6 +2629,10 @@ def main() -> int:
     gnn_row = run_gnn(codes, device, card, registers, functions)
     phase("gnn_vs_plain", t0)
 
+    t0 = time.perf_counter()
+    gf2_row = run_gf2(device, card)
+    phase("gf2_kernel_vs_plain", t0)
+
     # 4. the main path
     t0 = time.perf_counter()
     reset_counts()
@@ -2885,6 +2960,14 @@ def main() -> int:
             "shape": "[[882,24]] sub-batch %d, both sides" % OSD_KERNEL["cap"],
             **osd_row,
             "library_ms": None,
+        },
+        {
+            "name": "mod2_matmul",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/gf2mat.cu",
+            "replaces": "feedback_gnn_tpu/ops/gf2mat.py mod2_matmul (XLA dot)",
+            "max_abs_err": 0,
+            **gf2_row,
         },
         *probe_rows,
     ]}

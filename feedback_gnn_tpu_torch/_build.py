@@ -2,8 +2,9 @@
 
 At first use, one ``nvcc`` per ``csrc/*.cu`` (K1 ``bp4_qc.cu`` and K2
 ``bp2_qc.cu``, which share ``qc_common.cuh``, the probe kernels of
-``probes.cu``, the fused feedback-GNN step of ``gnn_feedback.cu`` and
-OSD-0's elimination of ``osd0.cu``), all
+``probes.cu``, the fused feedback-GNN step of ``gnn_feedback.cu``,
+OSD-0's elimination of ``osd0.cu`` and the GF(2) product of
+``gf2mat.cu``), all
 started together, compiles each source into an object,
 and one more links them into a shared library with a plain C interface,
 which ``ctypes`` loads.  No PyTorch headers are involved.  The library goes into
@@ -150,6 +151,10 @@ def _load() -> None:
     dll.fgt_osd0_shared_bytes.restype = i
     dll.fgt_osd0_occupancy.argtypes = [i, i, p]
     dll.fgt_osd0_occupancy.restype = i
+    dll.fgt_gf2_matmul_launch.argtypes = [p, ctypes.c_longlong, i, p, p, p, i, i, i, p]
+    dll.fgt_gf2_matmul_launch.restype = i
+    dll.fgt_gf2_occupancy.argtypes = [i, i, p]
+    dll.fgt_gf2_occupancy.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

@@ -274,5 +274,6 @@ extern "C" const char* fgt_cuda_error_string(int code) {
   if (code == -1) return "no kernel instance for this CN rule, phi form, degree pair and message carry";
   if (code == -2) return "no feedback-GNN kernel instance for these widths and VN degree";
   if (code == -3) return "no OSD-0 kernel for this shape or batch";
+  if (code == -4) return "no GF(2) product kernel for this shape or batch";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -868,6 +868,92 @@ def test_gnn_bp4_loss_on_card_matches_cpu(card, gnn_bp4_n882):
         assert _rel_l2(on_card[1][key], g) <= limit, key
 
 
+# ---- the GF(2) product (csrc/gf2mat.cu) ------------------------------------------
+
+GF2_BATCHES = [1, 31, 32, 33, 100, 1024, 1664, 3072, 8192, 20480]
+_GF2_GRAPHS = {}
+
+
+def _gf2_graph(name, card):
+    """A paper code's QuantumGraph on the card, built once a module."""
+    if name not in _GF2_GRAPHS:
+        from feedback_gnn_tpu_torch.codes import QuantumGraph
+
+        _GF2_GRAPHS[name] = QuantumGraph.from_code(OSD_CODES[name](), stage_mode=True).to(card)
+    return _GF2_GRAPHS[name]
+
+
+def _gf2_batch(n, b, card, seed):
+    """A [n, b] int32 0/1 batch: noise-like, with an all-ones sample (each
+    row sums its weight, up to 346) where b > 1."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    v = (torch.rand((n, b), generator=g, device=card) < 0.1).to(torch.int32)
+    if b > 1:
+        v[:, b // 2] = 1
+    return v
+
+
+def _gf2_check(graph, v, expect_launch=True):
+    """Every dense matrix of the graph: the kernel equals the plain version
+    bit for bit and counts one launch a call, path kernel."""
+    from feedback_gnn_tpu_torch.ops.gf2mat import mod2_matmul, mod2_matmul_plain
+
+    b = v.shape[1]
+    for mat in graph.DENSE:
+        h = getattr(graph, mat)
+        obs.reset()
+        out = mod2_matmul(h, v)
+        keys = obs.snapshot()["keys"].get("gf2.launches", {})
+        assert keys == ({("kernel", h.shape[0], h.shape[1], b): 1} if expect_launch and b else {}), mat
+        assert out.is_cuda and out.dtype == torch.int32 and out.shape == (h.shape[0], b), mat
+        assert torch.equal(out, mod2_matmul_plain(h, v.to(torch.int32))), mat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", GF2_BATCHES)
+@pytest.mark.parametrize("name", ["n882", "n1270"])
+def test_gf2_kernel_equals_plain(card, name, b):
+    """The GF(2) product's kernel equals mod2_matmul_plain bit for bit for
+    hx, hz, hx_perp, hz_perp, lx and lz, at the batches of the cells, their
+    sub-batches, the miners and the trainer, and ragged ones."""
+    graph = _gf2_graph(name, card)
+    _gf2_check(graph, _gf2_batch(graph.n_pad, b, card, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uint8", "bool", "column slice", "transposed", "int64", "empty"])
+@pytest.mark.parametrize("name", ["n882", "n1270"])
+def test_gf2_kernel_inputs(card, name, case):
+    """v as uint8 and bool (read as bytes), a column slice (read through its
+    row stride), a transposed batch, int64 (converted) and B = 0 (an empty
+    result, no launch)."""
+    graph = _gf2_graph(name, card)
+    full = _gf2_batch(graph.n_pad, 1100, card, 3)
+    v = {"uint8": full.to(torch.uint8), "bool": full.bool(), "column slice": full[:, 37:1061],
+         "transposed": full.T.contiguous().T, "int64": full.long(), "empty": full[:, :0]}[case]
+    _gf2_check(graph, v, expect_launch=case != "empty")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["not 0/1", "too wide", "devices"])
+def test_gf2_kernel_refuses_what_it_cannot_take(card, case):
+    from feedback_gnn_tpu_torch.ops import gf2mat
+
+    graph = _gf2_graph("n882", card)
+    h, v = graph.hx, _gf2_batch(graph.n_pad, 64, card, 4)
+    if case == "not 0/1":
+        h = 2 * h
+    elif case == "too wide":
+        n = gf2mat.MAX_COLUMNS + 1
+        h, v = torch.zeros((1, n), device=card), torch.zeros((n, 8), dtype=torch.int32, device=card)
+    else:
+        h = h.cpu()
+    obs.reset()
+    with pytest.raises(ValueError):
+        gf2mat.mod2_matmul(h, v)
+    assert obs.snapshot()["keys"].get("gf2.launches", {}) == {}
+
+
 # ---- the program's spans and counters ------------------------------------------
 
 
