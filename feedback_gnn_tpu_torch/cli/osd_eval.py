@@ -1,10 +1,13 @@
 """Plain BP and BP + OSD-0 evaluation of the [[882,24]] GHP code, the
 counterpart of examples/osd_eval.py: (a) plain BP4 and (b) BP4 + OSD-0 on
-the depolarizing channel, (c) plain BP2 and (d) BP2 + OSD-0 on the BSC.
+the depolarizing channel, (c) plain BP2 and (d) BP2 + OSD-0 on the BSC;
+and (e) the fully-learned GNN decoder GNN_BP4 on the depolarizing channel,
+the learned baseline beside them.
 
     python -m feedback_gnn_tpu_torch.cli.osd_eval -p 0.10 0.09 -bs 2000 --osd-cap 256
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp2-osd -p 0.05 --osd-cap 1536
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp4-osd -p 0.10 -bs 20480 --osd-cap 1024
+    python -m feedback_gnn_tpu_torch.cli.osd_eval --mode gnn-bp4 -p 0.03 -bs 20480
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The plain BP2 mode
 decodes on the fused QC BP2 decode (the CUDA kernel on the card); the OSD
@@ -13,6 +16,10 @@ modes decode with the gather decoders, as the JAX package's do, except
 plain version on the CPU) wherever the code is block-circulant, as
 [[882,24]] is.  Without ``--osd-cap`` OSD runs on the whole batch:
 [B, 429, 883] bytes of elimination table (B=20480 needs 7.8 GB).
+``gnn-bp4`` decodes with the weights of ``--weights`` (an ``.npz`` with its
+configuration in the ``.json`` beside it; by default the shipped n882
+weights), 8 iterations from the syndromes alone; B=20480 peaks at about
+32 GB on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("-bs", "--batch-size", type=int, default=2000)
     ap.add_argument("--target-errors", type=int, default=50)
     ap.add_argument("--max-mc-iter", type=int, default=50)
-    ap.add_argument("--mode", choices=["bp4", "bp2", "bp4-osd", "bp2-osd"], default="bp4-osd")
+    ap.add_argument("--mode", choices=["bp4", "bp2", "bp4-osd", "bp2-osd", "gnn-bp4"], default="bp4-osd")
     ap.add_argument("--iters", type=int, default=None,
                     help="BP iterations for the plain bp4/bp2 modes (default 64 SP / 100 NMS)")
     ap.add_argument("--cn-type", default=None, choices=["boxplus-phi", "boxplus", "minsum"],
@@ -51,6 +58,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--osd-cap", type=int, default=None,
                     help="run OSD on a dense flagged-only sub-batch of this size; flagged "
                     "samples beyond it are reported as overflow")
+    ap.add_argument("--weights", default=None,
+                    help="GNN_BP4 weights for --mode gnn-bp4: an .npz with its configuration in the "
+                    ".json beside it (default: the shipped n882 weights)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the kernels' "
                     "plain versions)")
@@ -98,6 +108,18 @@ def make_step(args, code, device):
                                             normalization_factor=0.8, osd_compact_cap=args.osd_cap, qc=qc)
 
         return step, "BP4 minsum 0.8 x100 + OSD0" + (" (QC kernel)" if qc is not None else "")
+    if args.mode == "gnn-bp4":
+        from ..decoders import gnn_full
+
+        host_graph = QuantumGraph.from_code(code, stage_mode=True)
+        graph, lrowsets = host_graph.to(device), gnn_full.make_logit_rowsets(host_graph, device)
+        params, cfg = (gnn_full.load_with_config(args.weights, device) if args.weights
+                       else gnn_full.load_shipped("n882", device))
+
+        def step(gen, p):
+            return models.gnn_bp4_eval_step(graph, lrowsets, params, cfg, gen, p, bs)
+
+        return step, f"GNN_BP4 x{cfg.num_iter}"
     hx_np = np.asarray(code.hx)
     basis = row_basis(hx_np)
     pivot = row_echelon(hx_np.T)[3]

@@ -23,9 +23,15 @@ embeddings and logits stay shard-local; what is replicated is marked with
 ``pvary`` where it enters shard-local work.  The max/min reductions across
 shards are forward-only, as JAX's ``pmax``/``pmin`` are.
 
+Spans (``obs``): ``gnn_bp4.cn`` a CN update, ``gnn_bp4.vn`` a VN update,
+each with the attribute ``iteration`` (the CN update that feeds VN update
+i is iteration i), and ``gnn_bp4.logits`` each ``_cal_logit``; counter
+``gnn_bp4.decodes``, keyed by (batch, iterations), a decode on the card.
+
 ``load_gnn_bp4_weights`` reads a parameter file that the JAX package's
-``save_pytree`` wrote; ``load_shipped`` the trained weights of
-``weights/gnn_bp4_*.npz`` with their configuration.
+``save_pytree`` wrote; ``load_with_config`` such a file with the
+configuration in the JSON beside it, ``load_shipped`` the trained weights
+of ``weights/gnn_bp4_*.npz``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..codes.graph import build_rowset
 from ..io.checkpoint import flatten_with_paths, load_pytree
 from ..ops.dense import dense_bl, init_dense, init_mlp
@@ -46,7 +53,7 @@ from .cn_update import boxplus_rows
 
 __all__ = [
     "GNNBP4Config", "init_gnn_bp4", "gnn_bp4_apply", "gnn_bp4_loss", "make_logit_rowsets",
-    "load_gnn_bp4_weights", "load_shipped", "SHIPPED_DIR",
+    "load_gnn_bp4_weights", "load_with_config", "load_shipped", "SHIPPED_DIR",
 ]
 
 # trained weights shipped with the port, each with its configuration
@@ -169,6 +176,57 @@ def _reduce_slots(messages, mask, deg, reduce_op: str, axis=None):
     raise ValueError(reduce_op)
 
 
+def _cat_attr(params, cfg, feat, name):
+    """``feat`` with the attribute ``name`` concatenated onto its leading
+    axis (attributes are shared across the batch), or ``feat`` itself
+    without ``cfg.use_attributes``."""
+    attrs = params.get("attributes") if cfg.use_attributes else None
+    if attrs is None:
+        return feat
+    a = attrs[name]
+    return torch.cat([feat, a[..., None].expand(a.shape + (feat.shape[-1],))], dim=0)
+
+
+def _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit, axis=None):
+    """The CN update of both sides: [h_cn_x, h_cn_z] from the VN and CN
+    embeddings and each side's check logit times its syndrome sign."""
+    act = _act(cfg.activation)
+    out = []
+    for side, g, h_cn, logit in (("x", graph.gx, h_cn_x, hx_logit), ("z", graph.gz, h_cn_z, hz_logit)):
+        # "from VN to CN": from = the VN endpoint, to = the CN endpoint
+        feat = _cat_attr(params, cfg, _cn_slot_features(pvary(h_vn, axis), h_cn, g), f"cn_msg_{side}")
+        msg = _mlp(feat, params[f"cn_msg_mlp_{side}"], act)  # [m, dc, c_pad, B]
+        del feat
+        red = _cat_attr(params, cfg, _reduce_slots(msg, g.cn_mask, g.cn_deg, cfg.reduce_op), f"cn_node_{side}")
+        del msg
+        out.append(_mlp(torch.cat([red, h_cn, logit[None]], dim=0), params[f"cn_embed_mlp_{side}"], act))
+    return out
+
+
+def _update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axis=None):
+    """The VN update: the new h_vn from both sides' syndrome-signed
+    messages, reduced at each VN, and the VN embeddings."""
+    act = _act(cfg.activation)
+    red = []
+    for side, g, h_cn, syn_pm in (("x", graph.gx, h_cn_x, syn_x_pm), ("z", graph.gz, h_cn_z, syn_z_pm)):
+        feat = _cat_attr(params, cfg, _vn_slot_features(h_cn, pvary(h_vn, axis), g), f"vn_msg_{side}")
+        msg = _mlp(feat, params[f"vn_msg_mlp_{side}"], act)  # [m, dv, n_pad, B]
+        del feat
+        msg = msg * syn_pm[g.edge_cn_byslot][None]  # syndrome-signed messages
+        red.append(_reduce_slots(msg, g.vn_mask, g.vn_deg, cfg.reduce_op, axis))
+        del msg
+    # one VN node attribute, concatenated onto m_z only
+    red[1] = _cat_attr(params, cfg, red[1], "vn_node")
+    return _mlp(torch.cat([red[0], red[1], h_vn], dim=0), params["vn_embed_mlp"], act)
+
+
+def _syndrome_pm(syndrome, rows):
+    """+1 where a syndrome bit is 0, -1 where it is 1: [rows, B] float32,
+    the rows past the syndrome's +1."""
+    x = syndrome.to(torch.float32)
+    return 1.0 - 2.0 * torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
 def _inv_embed(params, h_vn):
     layer = params["llr_inv_embed"]
     return dense_bl(h_vn, layer["kernel"], layer.get("bias"))  # [3, n_pad, B]
@@ -229,69 +287,40 @@ def gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg: GNNBP4Co
     local = {k: pvary_tree(v, axis) for k, v in params.items() if k.startswith("cn_") or
              k.startswith("vn_msg")}
     params = {**params, **local}
-    act = _act(cfg.activation)
     gx, gz = graph.gx, graph.gz
     b = syndrome_x.shape[-1]
     e = cfg.num_embed_dims
     dev = syndrome_x.device
 
-    def padc(x, rows):
-        return torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, rows - x.shape[0]))
+    if syndrome_x.is_cuda:
+        obs.count("gnn_bp4.decodes", key=(b, cfg.num_iter))
 
-    syn_x_pm = 1.0 - 2.0 * padc(syndrome_x, gx.c_pad)  # pad rows +1
-    syn_z_pm = 1.0 - 2.0 * padc(syndrome_z, gz.c_pad)
+    syn_x_pm = _syndrome_pm(syndrome_x, gx.c_pad)
+    syn_z_pm = _syndrome_pm(syndrome_z, gz.c_pad)
 
     h_vn = torch.ones((e, gx.n_pad, b), device=dev)
     h_cn_x = torch.zeros((e, gx.c_pad, b), device=dev)
     h_cn_z = torch.zeros((e, gz.c_pad, b), device=dev)
 
-    attrs = params.get("attributes") if cfg.use_attributes else None
-
-    def cat_attr(feat, name):
-        # attributes are shared across the batch
-        if attrs is None:
-            return feat
-        a = attrs[name]
-        return torch.cat([feat, a[..., None].expand(a.shape + (feat.shape[-1],))], dim=0)
-
-    def update_cn(h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit):
-        # "from VN to CN": from = the VN endpoint, to = the CN endpoint
-        out = []
-        for side, g, h_cn, logit in (("x", gx, h_cn_x, hx_logit), ("z", gz, h_cn_z, hz_logit)):
-            msg = _mlp(cat_attr(_cn_slot_features(pvary(h_vn, axis), h_cn, g), f"cn_msg_{side}"),
-                       params[f"cn_msg_mlp_{side}"], act)  # [m, dc, c_pad, B]
-            red = cat_attr(_reduce_slots(msg, g.cn_mask, g.cn_deg, cfg.reduce_op), f"cn_node_{side}")
-            del msg
-            out.append(_mlp(torch.cat([red, h_cn, logit[None]], dim=0), params[f"cn_embed_mlp_{side}"],
-                            act))
-        return out
-
-    def update_vn(h_cn_x, h_cn_z, h_vn):
-        red = []
-        for side, g, h_cn, syn_pm in (("x", gx, h_cn_x, syn_x_pm), ("z", gz, h_cn_z, syn_z_pm)):
-            msg = _mlp(cat_attr(_vn_slot_features(h_cn, pvary(h_vn, axis), g), f"vn_msg_{side}"),
-                       params[f"vn_msg_mlp_{side}"], act)  # [m, dv, n_pad, B]
-            msg = msg * syn_pm[g.edge_cn_byslot][None]  # syndrome-signed messages
-            red.append(_reduce_slots(msg, g.vn_mask, g.vn_deg, cfg.reduce_op, axis))
-            del msg
-        # one VN node attribute, concatenated onto m_z only
-        red[1] = cat_attr(red[1], "vn_node")
-        return _mlp(torch.cat([red[0], red[1], h_vn], dim=0), params["vn_embed_mlp"], act)
-
     # initial CN update with zero logits
-    h_cn_x, h_cn_z = update_cn(h_vn, h_cn_x, h_cn_z, torch.zeros_like(syn_x_pm),
-                               torch.zeros_like(syn_z_pm))
+    with obs.span("gnn_bp4.cn", iteration=0):
+        h_cn_x, h_cn_z = _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, torch.zeros_like(syn_x_pm),
+                                    torch.zeros_like(syn_z_pm), axis)
 
     stack = [] if collect_logits else None
     llrs = None
     for i in range(cfg.num_iter):
-        h_vn = update_vn(h_cn_x, h_cn_z, h_vn)
-        hx_logit, hz_logit, x_perp, z_perp, llrs = _cal_logit(params, lrowsets, h_vn, axis)
+        with obs.span("gnn_bp4.vn", iteration=i):
+            h_vn = _update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axis)
+        with obs.span("gnn_bp4.logits", iteration=i):
+            hx_logit, hz_logit, x_perp, z_perp, llrs = _cal_logit(params, lrowsets, h_vn, axis)
         if collect_logits:
             stack.append(_cal_prob(params, h_vn) if cfg.loss_type == "sine" else (x_perp, z_perp))
         if i == cfg.num_iter - 1:
             break
-        h_cn_x, h_cn_z = update_cn(h_vn, h_cn_x, h_cn_z, hx_logit * syn_x_pm, hz_logit * syn_z_pm)
+        with obs.span("gnn_bp4.cn", iteration=i + 1):
+            h_cn_x, h_cn_z = _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit * syn_x_pm,
+                                        hz_logit * syn_z_pm, axis)
 
     x_hat, z_hat = hard_decision(*llrs)
     return x_hat, z_hat, stack
@@ -353,10 +382,15 @@ def load_gnn_bp4_weights(path: str, cfg: GNNBP4Config, device=None, graph=None):
     return load_pytree(path, like, device)
 
 
+def load_with_config(path: str, device=None):
+    """(params, cfg) of the weights file ``path`` (``<stem>.npz``), the
+    configuration from ``<stem>.json`` beside it."""
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        cfg = GNNBP4Config(**json.load(f))
+    return load_gnn_bp4_weights(path, cfg, device), cfg
+
+
 def load_shipped(name: str, device=None):
     """(params, cfg) of the shipped trained weights ``weights/gnn_bp4_<name>.npz``
     (``name``: "n882" or "gb48"), the configuration from the JSON beside them."""
-    stem = os.path.join(SHIPPED_DIR, f"gnn_bp4_{name}")
-    with open(stem + ".json") as f:
-        cfg = GNNBP4Config(**json.load(f))
-    return load_gnn_bp4_weights(stem + ".npz", cfg, device), cfg
+    return load_with_config(os.path.join(SHIPPED_DIR, f"gnn_bp4_{name}.npz"), device)

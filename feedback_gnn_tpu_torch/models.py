@@ -22,6 +22,8 @@ The OSD steps decode with the gather decoders, as the JAX package's do;
 (K1 on the card), as the cascade's decodes do.  Like the cascade's step it
 emits the spans ``step.sample`` and ``step.account`` and ends the batch
 (``obs.end_batch``) once a step; its BP decode is the span ``osd.bp``.
+``gnn_bp4_eval_step`` does the same, with its decode in the span
+``gnn_bp4.decode``.
 """
 
 from __future__ import annotations
@@ -264,19 +266,24 @@ def bp2_osd_eval_step(pcm_graph, pcm, pcm_basis, pivot_pcm, logical_pcm, generat
 def gnn_bp4_count(graph, lrowsets, params, cfg, noise_x, noise_z):
     """Decode the syndromes of given Pauli errors ``noise_x``/``noise_z``
     [n, B] (0/1) with GNN_BP4 and count the errors; the decode-and-count
-    part of ``gnn_bp4_eval_step``."""
-    noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
-    noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
-    syndrome_x = mod2_matmul(graph.hx, noise_z)
-    syndrome_z = mod2_matmul(graph.hz, noise_x)
+    part of ``gnn_bp4_eval_step``.  Ends the batch (``obs.end_batch``)."""
+    with obs.span("step.sample"):
+        noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
+        noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
+        syndrome_x = mod2_matmul(graph.hx, noise_z)
+        syndrome_z = mod2_matmul(graph.hz, noise_x)
 
-    x_hat, z_hat, _ = gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg)
-    x_diff = noise_x ^ x_hat
-    z_diff = noise_z ^ z_hat
-    s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)], dim=0)
-    ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)],
-                       dim=0)
-    return _counts(s_hat, ls_hat)
+    with obs.span("gnn_bp4.decode"):
+        x_hat, z_hat, _ = gnn_bp4_apply(params, graph, lrowsets, syndrome_x, syndrome_z, cfg)
+    with obs.span("step.account"):
+        x_diff = noise_x ^ x_hat
+        z_diff = noise_z ^ z_hat
+        s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)], dim=0)
+        ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)],
+                           dim=0)
+        out = _counts(s_hat, ls_hat)
+    obs.end_batch()
+    return out
 
 
 def gnn_bp4_eval_step(graph, lrowsets, params, cfg, generator: torch.Generator, p, batch: int,
@@ -286,9 +293,10 @@ def gnn_bp4_eval_step(graph, lrowsets, params, cfg, generator: torch.Generator, 
     of strength ``p``) -> syndromes -> GNN_BP4 -> (flagged, logical).
     ``graph`` is a ``QuantumGraph`` of tensors, ``lrowsets`` from
     ``decoders.gnn_full.make_logit_rowsets``, ``params``/``cfg`` GNN_BP4's."""
-    if wt is not None:
-        noise_x, noise_z = pauli_fixed_weight(generator, wt, graph.n, batch)
-    else:
-        px, py, pz = depolarizing_probs(p)
-        noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
+    with obs.span("step.sample"):
+        if wt is not None:
+            noise_x, noise_z = pauli_fixed_weight(generator, wt, graph.n, batch)
+        else:
+            px, py, pz = depolarizing_probs(p)
+            noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
     return gnn_bp4_count(graph, lrowsets, params, cfg, noise_x, noise_z)
