@@ -6,10 +6,12 @@
 Builds the port's CUDA kernels from feedback_gnn_tpu_torch/csrc with one
 nvcc (K1, the fused QC BP4 decode; K2, the fused QC BP2 decode; the three
 probe kernels of csrc/probes.cu; the fused feedback-GNN step of
-csrc/gnn_feedback.cu; OSD-0's elimination of csrc/osd0.cu), holds each
-against its plain PyTorch version on the card (the GNN step also timed
-beside it, with its host cost a call
-and its issue bounds), and drives the paths that run them or their
+csrc/gnn_feedback.cu; OSD-0's elimination of csrc/osd0.cu; the GF(2)
+product of csrc/gf2mat.cu; GNN_BP4's CN and VN updates of csrc/gnn_bp4.cu),
+holds each against its plain PyTorch version on the card (the GNN step also
+timed beside it, with its host cost a call and its issue bounds; GNN_BP4's
+updates and one whole decode at the gnn_p03 cell's shape beside their
+operations bounds), and drives the paths that run them or their
 neighbours (every cascade counting one fused GNN step a round): the [[882,24]] sandwich cascade of feedback_gnn_tpu_torch.entry
 and the [[1270,28]] compacted workload of cli/bench.py (K1); the evaluate
 CLI (cli/evaluate.py's run(), [[882,24]] at p=0.08 to 100 logical errors,
@@ -106,6 +108,13 @@ OSD_KERNEL = dict(p=0.10, batch=20480, cap=1024, seed=31)
 # cells' full-batch shapes: both codes' syndrome and accounting matrices
 GF2 = dict(codes=("n1270", "n882"), matrices=("hx", "hz", "hx_perp", "hz_perp"), batch=20480, p=0.05, seed=17,
            reps=20)
+# GNN_BP4's CN and VN update kernels against their plain versions at the
+# gnn_p03 cell's shape ([[882,24]], B=20480, the shipped weights, embeddings
+# drawn on every row): within `tol` on every row, timed by events over
+# `reps` calls (the plain version over `plain_reps`) beside the update's
+# bound; then one decode of the cell's traffic (p) on the kernels, timed
+# over `decode_reps`, with its peak memory and launches.
+GNN_BP4_KERNEL = dict(code="n882", batch=20480, tol=1e-5, reps=5, plain_reps=2, p=0.03, seed=25, decode_reps=3)
 # K1 and K2 against their plain versions: bit for bit (the plain versions
 # repeat the kernels' order of operations and the same accurate libm calls)
 CMP_BATCH, CMP_ITERS = 256, 64
@@ -317,16 +326,23 @@ def read_counts():
     """Launches since the last reset_counts: K1, K2, the fused GNN step
     (GNN) and the GNN steps the card ran on the plain version (GNN_plain:
     an edge shard or a gradient), the OSD-0 kernel (OSD) and OSD-0's plain
-    loop on the card (OSD_plain), and each probe wrapper."""
+    loop on the card (OSD_plain), GNN_BP4's CN and VN update kernels
+    (GNN_BP4_CN, GNN_BP4_VN) and the updates the card ran on the plain
+    version (GNN_BP4_plain: a gradient, an edge shard, no instance), and
+    each probe wrapper."""
     from feedback_gnn_tpu_torch import obs, probes
 
     keys = obs.snapshot()["keys"]
     gnn, osd = keys.get("gnn.launches", {}), keys.get("osd.launches", {})
+    bp4 = keys.get("gnn_bp4.launches", {})
     return {"K1": obs.counter("k1.launches"), "K2": obs.counter("k2.launches"),
             "GNN": sum(n for (path, _), n in gnn.items() if path == "fused"),
             "GNN_plain": sum(n for (path, _), n in gnn.items() if path == "plain"),
             "OSD": sum(n for (path, _), n in osd.items() if path == "kernel"),
             "OSD_plain": sum(n for (path, _), n in osd.items() if path == "plain"),
+            **{f"GNN_BP4_{update.upper()}": sum(n for (path, u, _), n in bp4.items()
+                                               if path == "kernel" and u == update) for update in ("cn", "vn")},
+            "GNN_BP4_plain": sum(n for (path, _, _), n in bp4.items() if path == "plain"),
             **{name: obs.counter(f"probe.{name}.launches") for name in probes.WRAPPERS}}
 
 
@@ -494,6 +510,39 @@ def phi_sass_counts(functions, registers):
               f"of {floats} floats, {counts[key]:.2f} an element ("
               + ", ".join(f"{k} {v / floats:.2f}" for k, v in sorted(mix.items()))
               + f"); registers {r}, spill stores {spill} B")
+    return counts
+
+
+# tensor-core (matrix) SASS opcodes: Ampere-style warp MMAs and Hopper's
+# warpgroup MMAs, of every input type
+TENSOR_CORE_OPS = ("HMMA", "IMMA", "DMMA", "BMMA", "HGMMA", "IGMMA", "QGMMA", "BGMMA")
+# nvcc flags that trade float32 rounding for speed
+FAST_MATH_FLAGS = ("--use_fast_math", "-use_fast_math", "--ftz=true", "--prec-div=false", "--prec-sqrt=false")
+
+
+def gnn_bp4_sass(functions):
+    """Each GNN_BP4 update kernel's SASS (csrc/gnn_bp4.cu, every instance):
+    its instructions, FFMAs and tensor-core instructions (TENSOR_CORE_OPS),
+    printed; raises AssertionError where an instance issues a tensor-core
+    instruction or the build passes a fast-math flag (the kernels are
+    float32 FFMA only).  Returns {instance name: (instructions, FFMA,
+    tensor-core)}, empty without cuobjdump."""
+    from feedback_gnn_tpu_torch import _build
+
+    fast = [f for f in _build.NVCC_FLAGS if f in FAST_MATH_FLAGS]
+    counts = {}
+    for name, code in functions or ():
+        if not re.search(r"gnn_bp4_(cn|vn)_kernel", name):
+            continue
+        ops = [op for _, op, _ in code]
+        mma = sum(op.split(".")[0] in TENSOR_CORE_OPS for op in ops)
+        ffma = sum(op.split(".")[0] == "FFMA" for op in ops)
+        counts[name] = (len(ops), ffma, mma)
+        print(f"  sass {name}: {len(ops)} instructions, FFMA {ffma}, tensor-core {mma}")
+    print(f"GNN_BP4 sass: {len(counts)} instances, tensor-core instructions "
+          f"{sum(c[2] for c in counts.values())}, fast-math flags {fast}", flush=True)
+    if fast or any(c[2] for c in counts.values()):
+        raise AssertionError(f"GNN_BP4 kernels: tensor-core instructions {counts}, fast-math flags {fast}")
     return counts
 
 
@@ -1221,6 +1270,111 @@ def run_gf2(device, card, G=GF2):
                 row = dict(shape=f"[[1270,28]] hx [{m}, {n}] x B={b}", ms=kernel_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
     return row
+
+
+def gnn_bp4_update_bounds_ms(graph, widths, batch):
+    """(CN update, VN update) least times on an H100 of one update at
+    ``batch``: benchmark/gnn_bp4_counts.py's operations of the update (the
+    message MLP on every edge of both sides and the update's embed MLP on
+    every true node) at the float32 peak."""
+    from benchmark import gnn_bp4_counts as gc
+
+    e, m, h = (int(widths[k]) for k in ("num_embed_dims", "num_msg_dims", "num_hidden_units"))
+    depth = int(widths["num_mlp_layers"])
+    gx, gz = graph.gx, graph.gz
+    msg = gc._mlp(2 * e, h, depth, m) * (gx.num_edges + gz.num_edges)
+    cn = msg + (gx.num_cn + gz.num_cn) * gc._mlp(m + e + 1, h, depth, e)
+    vn = msg + gx.num_vn * gc._mlp(2 * m + e, h, depth, e)
+    return tuple(1e3 * batch * ops / H100_F32_OPS for ops in (cn, vn))
+
+
+def run_gnn_bp4_kernel(device, card, registers, G=GNN_BP4_KERNEL):
+    """GNN_BP4's update kernels (csrc/gnn_bp4.cu) at G's shape: each
+    update's kernel within G["tol"] of its plain version on every row and
+    counted as one ``kernel`` launch of ``gnn_bp4.launches``; its time by
+    events beside its bound (``gnn_bp4_update_bounds_ms``) and the plain
+    version's; ptxas registers and spills, occupancy; one whole decode of
+    G's traffic on the kernels, its time, peak memory and launches beside
+    the decode's bound (benchmark/gnn_bp4_counts.py).  Returns the kernels
+    line's rows."""
+    from benchmark import gnn_bp4_counts as gc
+    from feedback_gnn_tpu_torch import obs
+    from feedback_gnn_tpu_torch._build import load_kernels
+    from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
+    from feedback_gnn_tpu_torch.cli.train_gnn_bp4 import build_code
+    from feedback_gnn_tpu_torch.codes import QuantumGraph
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+
+    for (name, _), (regs, spill) in sorted(registers.items()):
+        if "gnn_bp4" in name:
+            print(f"GNN_BP4 ptxas {name}: {regs} registers, spill stores {spill} B", flush=True)
+    host = QuantumGraph.from_code(build_code(G["code"]), stage_mode=True)
+    graph, rs = host.to(device), gnn_full.make_logit_rowsets(host, device)
+    params, cfg = gnn_full.load_shipped(G["code"], device)
+    gx, gz, b = graph.gx, graph.gz, G["batch"]
+    gen = torch.Generator(device=device).manual_seed(G["seed"])
+    h_vn = torch.randn((cfg.num_embed_dims, gx.n_pad, b), generator=gen, device=device)
+    h_cn_x, h_cn_z = (torch.randn((cfg.num_embed_dims, s.c_pad, b), generator=gen, device=device) for s in (gx, gz))
+    logit_x, logit_z = (torch.randn((s.c_pad, b), generator=gen, device=device) * 3.0 for s in (gx, gz))
+    sign_x, sign_z = (1.0 - 2.0 * torch.randint(0, 2, (s.c_pad, b), generator=gen, device=device).float()
+                      for s in (gx, gz))
+    updates = {
+        "cn": (lambda: gnn_full._update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, logit_x, logit_z),
+               lambda: gnn_full._update_cn_plain(params, graph, cfg, h_vn, h_cn_x, h_cn_z, logit_x, logit_z)),
+        "vn": (lambda: gnn_full._update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, sign_x, sign_z),
+               lambda: gnn_full._update_vn_plain(params, graph, cfg, h_cn_x, h_cn_z, h_vn, sign_x, sign_z)),
+    }
+    bounds = dict(zip(("cn", "vn"), gnn_bp4_update_bounds_ms(graph, cfg._asdict(), b)))
+    (widths, slots) = gnn_full.kernel_instance(cfg, graph)
+    lib = load_kernels()
+    rows = {}
+    with torch.no_grad():
+        for update, (kernel, plain) in updates.items():
+            reset_counts()
+            out = kernel()
+            keys = dict(obs.snapshot()["keys"].get("gnn_bp4.launches", {}))
+            ref = plain()
+            outs, refs = (out, ref) if update == "cn" else ([out], [ref])
+            gap = max(float(((o - r).abs() / r.abs().clamp_min(1.0)).max()) for o, r in zip(outs, refs))
+            equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
+            del out, ref, outs, refs
+            k_ms = time_ms(kernel, G["reps"])
+            p_ms = time_ms(plain, G["plain_reps"])
+            which = 0 if update == "cn" else 1
+            occ = (ctypes.c_int * 3)()
+            err = lib.fgt_gnn_bp4_occupancy(which, *widths, slots[which], gnn_full.KERNEL_SLOTS[slots][which], occ)
+            print(f"GNN_BP4 {update} update [[882,24]] B={b}: kernel {k_ms:.4f} ms, bound {bounds[update]:.4f} ms "
+                  f"(operations; {100 * bounds[update] / k_ms:.1f} % of it), plain {p_ms:.4f} ms ({p_ms / k_ms:.2f}x); "
+                  f"gap {gap:.3e} (limit {G['tol']}), bit for bit {'yes' if equal else 'no'}; occupancy (blocks an SM, "
+                  f"registers, local B) {list(occ) if err == 0 else f'error {err}'}; launches {keys} on {card}",
+                  flush=True)
+            if gap > G["tol"] or keys != {("kernel", update, b): 1}:
+                raise AssertionError(f"GNN_BP4 {update} update: gap {gap:.3e} (limit {G['tol']}), launches {keys}")
+            rows[update] = dict(shape=f"[[882,24]] B={b}", ms=k_ms, plain_ms=p_ms, bound_ms=bounds[update],
+                                bound_by="operations", max_rel_gap=gap, registers=occ[1], local_bytes=occ[2])
+        del h_vn, h_cn_x, h_cn_z, logit_x, logit_z, sign_x, sign_z
+        # one decode of the cell's traffic on the kernels
+        nx, nz = pauli_iid(torch.Generator(device=device).manual_seed(G["seed"]), *depolarizing_probs(G["p"]),
+                           graph.n, b)
+        nx, nz = (torch.nn.functional.pad(t.to(torch.int32), (0, 0, 0, graph.n_pad - graph.n)) for t in (nx, nz))
+        sx, sz = mod2_matmul(graph.hx, nz), mod2_matmul(graph.hz, nx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        d_ms = time_ms(lambda: gnn_full.gnn_bp4_apply(params, graph, rs, sx, sz, cfg), G["decode_reps"])
+        peak = torch.cuda.max_memory_allocated()
+        keys = dict(obs.snapshot()["keys"].get("gnn_bp4.launches", {}))
+    dims = gc.Dims(graph.n, gx.num_cn, gz.num_cn, gx.num_edges, gz.num_edges, host.lx_rows, host.lz_rows)
+    d_bound = gc.gnn_bp4_bound_ms(dims, cfg._asdict(), b)[0]
+    calls = G["decode_reps"] + 1
+    print(f"GNN_BP4 decode [[882,24]] B={b} p={G['p']}: {d_ms:.2f} ms ({b / d_ms * 1e3:.1f} syndromes/s), bound "
+          f"{d_bound:.2f} ms ({100 * d_bound / d_ms:.1f} %), peak memory {peak / 1e9:.2f} GB; launches {keys} in "
+          f"{calls} decodes on {card}", flush=True)
+    if keys != {("kernel", "cn", b): cfg.num_iter * calls, ("kernel", "vn", b): cfg.num_iter * calls}:
+        raise AssertionError(f"GNN_BP4 decode: launches {keys}, expected {cfg.num_iter * calls} of each on the kernel")
+    rows["decode"] = dict(ms=d_ms, bound_ms=d_bound, peak_gb=peak / 1e9)
+    return rows
 
 
 def probe_library(p):
@@ -2026,19 +2180,21 @@ def ulp_moved(params, seed):
 def bf16_dense():
     """GNN_BP4's dense layers with their inputs and kernels rounded to
     bfloat16 and the products summed in float32, as a TPU's default float32
-    matmul computes them."""
+    matmul computes them; the updates on the plain path, whose dense layers
+    these are."""
     from feedback_gnn_tpu_torch.decoders import gnn_full
 
-    plain = gnn_full.dense_bl
+    plain, takes = gnn_full.dense_bl, gnn_full.takes_kernel
 
     def rounded(x, kernel, bias=None, activation=None):
         return plain(x.to(torch.bfloat16).float(), kernel.to(torch.bfloat16).float(), bias, activation)
 
     gnn_full.dense_bl = rounded
+    gnn_full.takes_kernel = lambda *args, **kw: False  # the kernels' products are float32 only
     try:
         yield
     finally:
-        gnn_full.dense_bl = plain
+        gnn_full.dense_bl, gnn_full.takes_kernel = plain, takes
 
 
 def rel_l2(a, ref):
@@ -2071,8 +2227,9 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     """GNN_BP4 on the card: the shipped trained weights' LERs, card against
     CPU (forward, loss and gradients), the eval and train steps' rates and
     memory, cli/train_gnn_bp4.py end to end, cli/qldpc_codes.py and
-    cli/n1270.py --qc-kernel.  Returns the eval and train steps' ms and
-    K1's rows at cli/n1270.py's shapes."""
+    cli/n1270.py --qc-kernel.  Returns the eval and train steps' ms, the
+    eval step's CN and VN kernel launches a batch and K1's rows at
+    cli/n1270.py's shapes."""
     from feedback_gnn_tpu_torch.channels.pauli import depolarizing_probs, pauli_iid
     from feedback_gnn_tpu_torch.cli import n1270, qldpc_codes, train_gnn_bp4
     from feedback_gnn_tpu_torch.codes import QuantumGraph
@@ -2093,8 +2250,15 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     cards = {name: setup(name, device) for name in ("n882", "gb48")}
     out = {}
 
-    # 1.-2. the shipped trained weights against the JAX package's runs
-    def ler_rows(tag, table):
+    def bp4_counts(**launched):
+        """expected_counts with GNN_BP4's updates ``launched``: the counter
+        counts the card's calls only."""
+        return expected_counts(**(launched if device.type == "cuda" else {}))
+
+    # 1.-2. the shipped trained weights against the JAX package's runs, each
+    # CN and VN update of the eval step on its kernel (on the plain version
+    # where ``plain`` is set: the bf16 diagnostic)
+    def ler_rows(tag, table, plain=False):
         rows, missed = [], []
         for name, p, ref, ref_blocks, batches, checked in table:
             graph, rs, params, cfg = cards[name]
@@ -2116,8 +2280,13 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
                   f"(flagged {flagged}) against the JAX run's {ref}/{ref_blocks} = {ref / ref_blocks:.4e}: "
                   f"{z:+.2f} sigma{'' if checked else ' (not checked)'}; {secs:.3f} s, "
                   f"{blocks / secs:.1f} syndromes/s at B={G['batch']}; launches={counts} on {card}", flush=True)
-            if counts != expected_counts():
-                raise AssertionError(f"the GNN_BP4 eval step launched kernels: {counts}")
+            updates = cfg.num_iter * batches
+            want = (bp4_counts(GNN_BP4_plain=2 * updates) if plain
+                    else bp4_counts(GNN_BP4_CN=updates, GNN_BP4_VN=updates))
+            if counts != want:
+                raise AssertionError(f"the GNN_BP4 eval step's launches {counts}, expected {want}")
+            out.setdefault("launches", {"cn": counts["GNN_BP4_CN"] // batches,
+                                        "vn": counts["GNN_BP4_VN"] // batches})
             rows.append((name, p, logical, blocks, secs, step))
             if not ok:
                 missed.append((name, p, z))
@@ -2134,7 +2303,7 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
     # matmul rounds its inputs to bfloat16: the same count with the dense
     # layers' inputs so rounded, printed beside the float32 one
     with bf16_dense():
-        ler_rows("bf16 dense inputs (diagnostic) ", G["precision_diag"])
+        ler_rows("bf16 dense inputs (diagnostic) ", G["precision_diag"], plain=True)
     if missed:
         torch.backends.cuda.matmul.allow_tf32 = True
         ler_rows("TF32 on (diagnostic) ", G["ler"])
@@ -2249,17 +2418,23 @@ def run_gnn_bp4(codes, device, card, G=GNN_BP4):
         back = flatten_with_paths(load_gnn_bp4_weights(wpath, GNNBP4Config(**written["cfg"]), device))
     flat = flatten_with_paths(trained)
     same = sorted(back) == sorted(flat) and all(torch.equal(v, flat[k].detach()) for k, v in back.items())
+    # the training steps' updates carry a gradient (the plain version), the
+    # evaluation's run on the kernels: both sweeps, every point's batches
+    decodes = 2 * len(written["trained"]) * int(G["cli"][G["cli"].index("--eval-batches") + 1])
+    iters = written["cfg"]["num_iter"]
+    want = bp4_counts(GNN_BP4_CN=iters * decodes, GNN_BP4_VN=iters * decodes,
+                      GNN_BP4_plain=2 * iters * written["steps"])
     cli_p = float(G["cli"][G["cli"].index("--eval-p") + 1])
     init_ler, trained_ler = results["init"][cli_p]["ler"], results["trained"][cli_p]["ler"]
     print(f"gnn_bp4 cli/train_gnn_bp4.py {' '.join(G['cli'])}: {secs:.2f} s; loss step 0 {losses[0]:.4f}, "
           f"step {len(losses) - 1} {losses[-1]:.4f}; LER at p={cli_p} init {init_ler:.4e}, trained "
           f"{trained_ler:.4e}; weights loaded back {'equal' if same else 'DIFFERENT'}; JSON keys "
-          f"{list(written)}; launches={counts}", flush=True)
+          f"{list(written)}; launches={counts} (expected {want})", flush=True)
     point = next(iter(written["trained"].values()))
     if not (np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0] and trained_ler < init_ler and same
             and list(written) == ["code", "cfg", "steps", "train_p", "init", "trained"]
             and list(written["cfg"]) == list(GNNBP4Config._fields)
-            and list(point) == ["flagged", "logical", "blocks", "ler"] and counts == expected_counts()):
+            and list(point) == ["flagged", "logical", "blocks", "ler"] and counts == want):
         raise AssertionError("cli/train_gnn_bp4.py end to end failed its checks")
 
     # 7. the example CLIs: the code zoo's table, [[1270,28]] with K1
@@ -2593,6 +2768,7 @@ def main() -> int:
     functions = sass_functions(info["library"])
     sass_counts(functions)
     phi_sass = phi_sass_counts(functions, registers)
+    gnn_bp4_mma = sum(c[2] for c in gnn_bp4_sass(functions).values()) if functions else None
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -2632,6 +2808,10 @@ def main() -> int:
     t0 = time.perf_counter()
     gf2_row = run_gf2(device, card)
     phase("gf2_kernel_vs_plain", t0)
+
+    t0 = time.perf_counter()
+    gnn_bp4_rows = run_gnn_bp4_kernel(device, card, registers)
+    phase("gnn_bp4_kernel_vs_plain", t0)
 
     # 4. the main path
     t0 = time.perf_counter()
@@ -2879,7 +3059,7 @@ def main() -> int:
 
     # 16. GNN_BP4 and the example CLIs
     t0 = time.perf_counter()
-    run_gnn_bp4(codes, device, card)
+    gnn_bp4_out = run_gnn_bp4(codes, device, card)
     phase("gnn_bp4", t0)
 
     # 17. multi-device: data-parallel and edge-sharded ranks
@@ -2969,6 +3149,16 @@ def main() -> int:
             "max_abs_err": 0,
             **gf2_row,
         },
+        *({
+            "name": f"gnn_full._update_{update} (GNN_BP4 {update.upper()} update)",
+            "route": "cuda",
+            "source": "feedback_gnn_tpu_torch/csrc/gnn_bp4.cu",
+            "replaces": "feedback_gnn_tpu/decoders/gnn_full.py _update_%s (XLA ops)" % update,
+            "launches": gnn_bp4_out["launches"][update],  # a batch of models.gnn_bp4_eval_step
+            "tensor_core_sass": gnn_bp4_mma,
+            **gnn_bp4_rows[update],
+            "library_ms": None,
+        } for update in ("cn", "vn")),
         *probe_rows,
     ]}
     print(f"phase total: {time.perf_counter() - t_all:.2f} s")

@@ -3,8 +3,8 @@
 At first use, one ``nvcc`` per ``csrc/*.cu`` (K1 ``bp4_qc.cu`` and K2
 ``bp2_qc.cu``, which share ``qc_common.cuh``, the probe kernels of
 ``probes.cu``, the fused feedback-GNN step of ``gnn_feedback.cu``,
-OSD-0's elimination of ``osd0.cu`` and the GF(2) product of
-``gf2mat.cu``), all
+OSD-0's elimination of ``osd0.cu``, the GF(2) product of ``gf2mat.cu`` and
+GNN_BP4's CN and VN updates of ``gnn_bp4.cu``), all
 started together, compiles each source into an object,
 and one more links them into a shared library with a plain C interface,
 which ``ctypes`` loads.  No PyTorch headers are involved.  The library goes into
@@ -155,6 +155,14 @@ def _load() -> None:
     dll.fgt_gf2_matmul_launch.restype = i
     dll.fgt_gf2_occupancy.argtypes = [i, i, p]
     dll.fgt_gf2_occupancy.restype = i
+    cn_side = [p, p, p, p, p, p, i, i]  # embeddings, logits, output, VN ids, masks, degrees, c_pad, dc
+    dll.fgt_gnn_bp4_cn_launch.argtypes = [p, i] + cn_side + cn_side + [p] + [i] * 7 + [p]
+    dll.fgt_gnn_bp4_cn_launch.restype = i
+    vn_side = [p, p, p, p, p, i, i]  # CN embeddings, signs, CN ids, masks, degrees, c_pad, dv
+    dll.fgt_gnn_bp4_vn_launch.argtypes = [p, i, p] + vn_side + vn_side + [p] + [i] * 7 + [p]
+    dll.fgt_gnn_bp4_vn_launch.restype = i
+    dll.fgt_gnn_bp4_occupancy.argtypes = [i] * 6 + [p]
+    dll.fgt_gnn_bp4_occupancy.restype = i
     dll.fgt_cuda_error_string.argtypes = [i]
     dll.fgt_cuda_error_string.restype = ctypes.c_char_p
     _lib = dll

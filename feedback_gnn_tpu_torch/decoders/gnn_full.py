@@ -23,10 +23,24 @@ embeddings and logits stay shard-local; what is replicated is marked with
 ``pvary`` where it enters shard-local work.  The max/min reductions across
 shards are forward-only, as JAX's ``pmax``/``pmin`` are.
 
+On a card each CN update (both sides) and each VN update is one launch of
+a hand-written kernel (``csrc/gnn_bp4.cu``: one thread a (node, sample)
+pair, every edge feature, hidden activation and message in registers)
+where ``takes_kernel`` says so: no gradient to carry, no edge shard, and a
+configuration and graph the library has an instance for
+(``kernel_instance``: two-layer ReLU MLPs without biases, a mean or sum,
+widths in ``KERNEL_WIDTHS``, node degrees within ``KERNEL_SLOTS``).  Every
+other call, the CPU's among them, takes the plain version
+(``_update_cn_plain``, ``_update_vn_plain``), which is also the kernels'
+oracle; a card call that takes the kernel path with tensors or parameters
+the kernel cannot read (devices, dtypes, shapes) raises ``ValueError``.
+
 Spans (``obs``): ``gnn_bp4.cn`` a CN update, ``gnn_bp4.vn`` a VN update,
 each with the attribute ``iteration`` (the CN update that feeds VN update
-i is iteration i), and ``gnn_bp4.logits`` each ``_cal_logit``; counter
-``gnn_bp4.decodes``, keyed by (batch, iterations), a decode on the card.
+i is iteration i), and ``gnn_bp4.logits`` each ``_cal_logit``; counters
+``gnn_bp4.decodes``, keyed by (batch, iterations), a decode on the card,
+and ``gnn_bp4.launches``, keyed by (path ``"kernel"`` or ``"plain"``,
+update ``"cn"`` or ``"vn"``, batch), an update on the card.
 
 ``load_gnn_bp4_weights`` reads a parameter file that the JAX package's
 ``save_pytree`` wrote; ``load_with_config`` such a file with the
@@ -50,6 +64,7 @@ from ..ops.dense import dense_bl, init_dense, init_mlp
 from ..parallel.collectives import pmax, pmin, psum, pvary, pvary_tree
 from .bp4 import hard_decision, quaternary_to_binary_llrs
 from .cn_update import boxplus_rows
+from .gnn_feedback import _carries_gradient
 
 __all__ = [
     "GNNBP4Config", "init_gnn_bp4", "gnn_bp4_apply", "gnn_bp4_loss", "make_logit_rowsets",
@@ -187,9 +202,10 @@ def _cat_attr(params, cfg, feat, name):
     return torch.cat([feat, a[..., None].expand(a.shape + (feat.shape[-1],))], dim=0)
 
 
-def _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit, axis=None):
-    """The CN update of both sides: [h_cn_x, h_cn_z] from the VN and CN
-    embeddings and each side's check logit times its syndrome sign."""
+def _update_cn_plain(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit, axis=None):
+    """``_update_cn`` in plain PyTorch on any device: the update of CPU
+    tensors, edge shards, gradients and configurations without a kernel
+    instance, and the kernel's oracle."""
     act = _act(cfg.activation)
     out = []
     for side, g, h_cn, logit in (("x", graph.gx, h_cn_x, hx_logit), ("z", graph.gz, h_cn_z, hz_logit)):
@@ -203,9 +219,8 @@ def _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit, axi
     return out
 
 
-def _update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axis=None):
-    """The VN update: the new h_vn from both sides' syndrome-signed
-    messages, reduced at each VN, and the VN embeddings."""
+def _update_vn_plain(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axis=None):
+    """``_update_vn`` in plain PyTorch on any device (as ``_update_cn_plain``)."""
     act = _act(cfg.activation)
     red = []
     for side, g, h_cn, syn_pm in (("x", graph.gx, h_cn_x, syn_x_pm), ("z", graph.gz, h_cn_z, syn_z_pm)):
@@ -218,6 +233,172 @@ def _update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axi
     # one VN node attribute, concatenated onto m_z only
     red[1] = _cat_attr(params, cfg, red[1], "vn_node")
     return _mlp(torch.cat([red[0], red[1], h_vn], dim=0), params["vn_embed_mlp"], act)
+
+
+# The kernels' instances (csrc/gnn_bp4.cu, BP4_CN_INSTANCES and
+# BP4_VN_INSTANCES): the widths (embed, message, hidden), and per (CN slots,
+# VN slots) the slots a pass of the message MLP holds in registers in the
+# CN update and in the VN update.
+KERNEL_WIDTHS = ((20, 20, 40),)
+KERNEL_SLOTS = {(6, 3): (2, 3), (8, 4): (4, 4)}
+
+
+def kernel_instance(cfg, graph):
+    """((e, m, h), (CN slots, VN slots)) of the kernels for ``cfg`` on
+    ``graph``, the fewest slots that hold both sides' node degrees; None
+    where the library has none: attributes, MLPs of another depth, another
+    activation, biases, a max or min reduction, widths not in
+    ``KERNEL_WIDTHS`` or degrees above every instance's slots."""
+    widths = (cfg.num_embed_dims, cfg.num_msg_dims, cfg.num_hidden_units)
+    if (cfg.use_attributes or cfg.num_mlp_layers != 2 or cfg.activation != "relu" or cfg.use_bias
+            or cfg.reduce_op not in ("mean", "sum") or widths not in KERNEL_WIDTHS):
+        return None
+    dc = max(graph.gx.max_cn_deg, graph.gz.max_cn_deg)
+    dv = max(graph.gx.max_vn_deg, graph.gz.max_vn_deg)
+    fits = sorted(s for s in KERNEL_SLOTS if s[0] >= dc and s[1] >= dv)
+    return (widths, fits[0]) if fits else None
+
+
+def takes_kernel(cfg, graph, on_card: bool, carries_gradient: bool, axis=None) -> bool:
+    """Whether a CN or VN update runs its kernel: a call on the card with
+    no gradient to carry (``gnn_feedback._carries_gradient``), no edge
+    shard and a ``kernel_instance``.  A pure function of what the call
+    observes."""
+    return on_card and not carries_gradient and axis is None and kernel_instance(cfg, graph) is not None
+
+
+def _packed(params, mlps, device):
+    """The weights of the two-layer MLPs ``mlps`` ((name, (fan_in, hidden,
+    fan_out)), ...) in turn as one float32 vector on ``device``, each
+    layer's kernel in its [in, out] layout, row-major: the order
+    csrc/gnn_bp4.cu reads them.  Raises ValueError where a layer is not a
+    bias-free float32 kernel of that shape on ``device``."""
+    parts = []
+    for name, (fan_in, hidden, fan_out) in mlps:
+        layers = params.get(name)
+        if not isinstance(layers, (list, tuple)) or len(layers) != 2:
+            raise ValueError(f"{name}: the kernel takes two dense layers")
+        for layer, shape in zip(layers, ((fan_in, hidden), (hidden, fan_out))):
+            kernel = layer.get("kernel") if isinstance(layer, dict) else None
+            if isinstance(layer, dict) and layer.get("bias") is not None:
+                raise ValueError(f"{name}: a layer with a bias; the kernel takes bias-free layers")
+            if (not isinstance(kernel, torch.Tensor) or tuple(kernel.shape) != shape
+                    or kernel.dtype != torch.float32 or kernel.device != device):
+                raise ValueError(f"{name}: a kernel of shape {getattr(kernel, 'shape', None)}, dtype "
+                                 f"{getattr(kernel, 'dtype', None)} on {getattr(kernel, 'device', None)}; the "
+                                 f"kernel takes float32 {shape} on {device}")
+            parts.append(kernel.detach().contiguous().reshape(-1))
+    return torch.cat(parts)
+
+
+def _check_call(graph, tensors, shapes, tables):
+    """Raise ValueError unless ``tensors`` are float32 of ``shapes`` on one
+    device with the graph's ``tables`` (int64 node ids, float32 masks and
+    degrees), one VN pad and a batch.  Returns the device."""
+    device = tensors[0].device
+    if any(t.device != device for t in tensors + tables):
+        raise ValueError(f"embeddings and graph on several devices: "
+                         f"{sorted({str(t.device) for t in tensors + tables})}")
+    for t, shape in zip(tensors, shapes):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"a {t.dtype} input of shape {tuple(t.shape)}: the kernel takes float32 {shape}")
+    if any(t.dtype != d for t, d in zip(tables, (torch.int64, torch.float32, torch.float32) * 2)):
+        raise ValueError("graph tables not in graph.py's dtypes (int64 node ids, float32 masks and degrees)")
+    if graph.gx.n_pad != graph.gz.n_pad or shapes[0][-1] == 0:
+        raise ValueError(f"VN pads {graph.gx.n_pad}, {graph.gz.n_pad} and batch {shapes[0][-1]}: the kernel takes "
+                         "one VN pad and a batch")
+    return device
+
+
+def _kernel_call(update, params, graph, cfg, tensors):
+    """What both launchers share: the instance, the call's checks
+    (``_check_call``), the packed weights of the update's MLPs and its inputs
+    made contiguous.  ``tensors`` are (h_vn, h_cn_x, h_cn_z, and per side a
+    [c_pad, B] row: the check logits of a CN update or the syndrome signs of
+    a VN update).  Returns (device, widths, (slots a node, slots a pass),
+    packed weights, tensors)."""
+    (e, m, h), slots = kernel_instance(cfg, graph)
+    gx, gz = graph.gx, graph.gz
+    b = tensors[0].shape[-1]
+    shapes = [(e, gx.n_pad, b), (e, gx.c_pad, b), (e, gz.c_pad, b), (gx.c_pad, b), (gz.c_pad, b)]
+    msg = (2 * e, h, m)
+    if update == "cn":
+        tables = [t for g in (gx, gz) for t in (g.edge_vn_byslot, g.cn_mask, g.cn_deg)]
+        mlps = [(f"cn_{kind}_mlp_{side}", dims) for side in "xz"
+                for kind, dims in (("msg", msg), ("embed", (m + e + 1, h, e)))]
+    else:
+        tables = [t for g in (gx, gz) for t in (g.edge_cn_byslot, g.vn_mask, g.vn_deg)]
+        mlps = [("vn_msg_mlp_x", msg), ("vn_msg_mlp_z", msg), ("vn_embed_mlp", (2 * m + e, h, e))]
+    dev = _check_call(graph, tensors, shapes, tables)
+    which = 0 if update == "cn" else 1
+    return (dev, (e, m, h), (slots[which], KERNEL_SLOTS[slots][which]), _packed(params, mlps, dev),
+            [t.contiguous() for t in tensors])
+
+
+def _launch(name, dev, *args):
+    """The library's launcher ``name`` with ``args`` and the current stream of ``dev``."""
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        detail = "no such instance" if err == -2 else lib.fgt_cuda_error_string(err).decode()
+        raise RuntimeError(f"GNN_BP4 kernel launch {name} failed: {detail}")
+
+
+def _launch_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit):
+    """Both sides' CN updates as one kernel launch on the current stream."""
+    dev, widths, slots, packed, (h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit) = _kernel_call(
+        "cn", params, graph, cfg, [h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit])
+    gx, gz, b = graph.gx, graph.gz, h_vn.shape[-1]
+    out = [torch.empty((widths[0], g.c_pad, b), dtype=torch.float32, device=dev) for g in (gx, gz)]
+    sides = [arg for g, h_cn, logit, o in ((gx, h_cn_x, hx_logit, out[0]), (gz, h_cn_z, hz_logit, out[1]))
+             for arg in (h_cn.data_ptr(), logit.data_ptr(), o.data_ptr(), g.edge_vn_byslot.data_ptr(),
+                         g.cn_mask.data_ptr(), g.cn_deg.data_ptr(), g.c_pad, g.max_cn_deg)]
+    _launch("fgt_gnn_bp4_cn_launch", dev, h_vn.data_ptr(), gx.n_pad, *sides, packed.data_ptr(), b,
+            int(cfg.reduce_op == "mean"), *widths, *slots)
+    return out
+
+
+def _launch_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm):
+    """The VN update as one kernel launch on the current stream."""
+    dev, widths, slots, packed, (h_vn, h_cn_x, h_cn_z, syn_x_pm, syn_z_pm) = _kernel_call(
+        "vn", params, graph, cfg, [h_vn, h_cn_x, h_cn_z, syn_x_pm, syn_z_pm])
+    gx, gz, b = graph.gx, graph.gz, h_vn.shape[-1]
+    out = torch.empty((widths[0], gx.n_pad, b), dtype=torch.float32, device=dev)
+    sides = [arg for g, h_cn, sign in ((gx, h_cn_x, syn_x_pm), (gz, h_cn_z, syn_z_pm))
+             for arg in (h_cn.data_ptr(), sign.data_ptr(), g.edge_cn_byslot.data_ptr(), g.vn_mask.data_ptr(),
+                         g.vn_deg.data_ptr(), g.c_pad, g.max_vn_deg)]
+    _launch("fgt_gnn_bp4_vn_launch", dev, h_vn.data_ptr(), gx.n_pad, out.data_ptr(), *sides, packed.data_ptr(), b,
+            int(cfg.reduce_op == "mean"), *widths, *slots)
+    return out
+
+
+def _update_cn(params, graph, cfg, h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit, axis=None):
+    """The CN update of both sides: [h_cn_x, h_cn_z] from the VN and CN
+    embeddings and each side's check logit times its syndrome sign.  One
+    kernel launch where ``takes_kernel`` says so."""
+    inputs = (h_vn, h_cn_x, h_cn_z, hx_logit, hz_logit)
+    on_card = h_vn.device.type == "cuda"
+    kernel = takes_kernel(cfg, graph, on_card, _carries_gradient(params, inputs), axis)
+    out = _launch_cn(params, graph, cfg, *inputs) if kernel else _update_cn_plain(params, graph, cfg, *inputs, axis)
+    if on_card:
+        obs.count("gnn_bp4.launches", key=("kernel" if kernel else "plain", "cn", h_vn.shape[-1]))
+    return out
+
+
+def _update_vn(params, graph, cfg, h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm, axis=None):
+    """The VN update: the new h_vn from both sides' syndrome-signed
+    messages, reduced at each VN, and the VN embeddings.  One kernel launch
+    where ``takes_kernel`` says so."""
+    inputs = (h_cn_x, h_cn_z, h_vn, syn_x_pm, syn_z_pm)
+    on_card = h_vn.device.type == "cuda"
+    kernel = takes_kernel(cfg, graph, on_card, _carries_gradient(params, inputs), axis)
+    out = _launch_vn(params, graph, cfg, *inputs) if kernel else _update_vn_plain(params, graph, cfg, *inputs, axis)
+    if on_card:
+        obs.count("gnn_bp4.launches", key=("kernel" if kernel else "plain", "vn", h_vn.shape[-1]))
+    return out
 
 
 def _syndrome_pm(syndrome, rows):

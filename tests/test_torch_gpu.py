@@ -991,3 +991,156 @@ def test_k1_shape_record_matches_the_benchmark_recorder(card, n882_training):
         obs.enable(False)
         obs.reset()
         rec.uninstall()
+
+
+# ---- GNN_BP4's CN and VN update kernels (csrc/gnn_bp4.cu) ----------------------------
+
+GNN_BP4_SHAPES = [("n882", 1), ("n882", 31), ("n882", 128), ("n882", 2048), ("n882", 20480), ("gb48", 1),
+                  ("gb48", 64)]
+GNN_BP4_TOL = 1e-5
+_GNN_BP4_GRAPHS = {}
+
+
+def _gnn_bp4_graph(name, card):
+    if name not in _GNN_BP4_GRAPHS:
+        code = tc.ghp_882_24() if name == "n882" else CODES["gb48"]()
+        _GNN_BP4_GRAPHS[name] = tc.QuantumGraph.from_code(code, stage_mode=True).to(card)
+    return _GNN_BP4_GRAPHS[name]
+
+
+def _gnn_bp4_params(weights, card):
+    """(params, cfg): a shipped trained set, or a seeded glorot init."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+
+    if weights == "fresh":
+        cfg = gnn_full.GNNBP4Config()
+        return gnn_full.init_gnn_bp4(torch.Generator(device=card).manual_seed(11), cfg), cfg
+    return gnn_full.load_shipped(weights, card)
+
+
+def _gnn_bp4_states(graph, b, card, seed):
+    """(h_vn, h_cn_x, h_cn_z, logit_x, logit_z, sign_x, sign_z) with every
+    row drawn, pad rows included."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    gx, gz = graph.gx, graph.gz
+    h_vn = torch.randn((20, gx.n_pad, b), generator=g, device=card)
+    h_cn_x, h_cn_z = (torch.randn((20, s.c_pad, b), generator=g, device=card) for s in (gx, gz))
+    logit_x, logit_z = (torch.randn((s.c_pad, b), generator=g, device=card) * 3.0 for s in (gx, gz))
+    sign_x, sign_z = (1.0 - 2.0 * torch.randint(0, 2, (s.c_pad, b), generator=g, device=card).float()
+                      for s in (gx, gz))
+    return h_vn, h_cn_x, h_cn_z, logit_x, logit_z, sign_x, sign_z
+
+
+def _gnn_bp4_gap(out, ref):
+    return float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logits", ["drawn", "zero"])
+@pytest.mark.parametrize("reduce_op", ["mean", "sum"])
+@pytest.mark.parametrize("weights", ["n882", "gb48", "fresh"])
+@pytest.mark.parametrize("code,b", GNN_BP4_SHAPES)
+def test_gnn_bp4_cn_kernel_matches_plain(card, code, b, weights, reduce_op, logits):
+    """Both sides' CN update, one launch: every row, pad rows included,
+    within |kernel - plain| / max(|plain|, 1) <= 1e-5 (the same products,
+    summed in the plain version's order except the embed product's); two
+    calls give the same bits; one ``kernel`` launch counted a call.  Zero
+    logits are iteration 0's."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = _gnn_bp4_graph(code, card)
+    params, cfg = _gnn_bp4_params(weights, card)
+    cfg = cfg._replace(reduce_op=reduce_op)
+    h_vn, hx, hz, lx, lz, _, _ = _gnn_bp4_states(graph, b, card, seed=b)
+    if logits == "zero":
+        lx, lz = torch.zeros_like(lx), torch.zeros_like(lz)
+    with torch.no_grad():
+        obs.reset()
+        out = gnn_full._update_cn(params, graph, cfg, h_vn, hx, hz, lx, lz)
+        again = gnn_full._update_cn(params, graph, cfg, h_vn, hx, hz, lx, lz)
+        keys = obs.snapshot()["keys"].get("gnn_bp4.launches", {})
+        ref = gnn_full._update_cn_plain(params, graph, cfg, h_vn, hx, hz, lx, lz)
+    assert keys == {("kernel", "cn", b): 2}
+    for o, a, r in zip(out, again, ref):
+        assert o.shape == r.shape and o.dtype == torch.float32 and torch.equal(o, a)
+        assert _gnn_bp4_gap(o, r) <= GNN_BP4_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce_op", ["mean", "sum"])
+@pytest.mark.parametrize("weights", ["n882", "gb48", "fresh"])
+@pytest.mark.parametrize("code,b", GNN_BP4_SHAPES)
+def test_gnn_bp4_vn_kernel_matches_plain(card, code, b, weights, reduce_op):
+    """The VN update, one launch: every row within 1e-5 of the plain
+    version (its sums are taken in the plain version's order), two calls
+    the same bits, one ``kernel`` launch a call."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = _gnn_bp4_graph(code, card)
+    params, cfg = _gnn_bp4_params(weights, card)
+    cfg = cfg._replace(reduce_op=reduce_op)
+    h_vn, hx, hz, _, _, sx, sz = _gnn_bp4_states(graph, b, card, seed=b + 1)
+    with torch.no_grad():
+        obs.reset()
+        out = gnn_full._update_vn(params, graph, cfg, hx, hz, h_vn, sx, sz)
+        again = gnn_full._update_vn(params, graph, cfg, hx, hz, h_vn, sx, sz)
+        keys = obs.snapshot()["keys"].get("gnn_bp4.launches", {})
+        ref = gnn_full._update_vn_plain(params, graph, cfg, hx, hz, h_vn, sx, sz)
+    assert keys == {("kernel", "vn", b): 2}
+    assert out.shape == ref.shape and torch.equal(out, again)
+    assert _gnn_bp4_gap(out, ref) <= GNN_BP4_TOL
+
+
+@pytest.mark.gpu
+def test_gnn_bp4_decode_on_the_kernels_matches_plain(card, monkeypatch):
+    """A whole decode on [[882,24]] at B = 2048, p = 0.03 through the
+    kernels: each sample's decisions equal the plain decode's on >= 99 % of
+    the samples (the network runs 8 iterations, where float32's last bits
+    move a marginal sample; PERF.md section 2), and every update of the
+    eval step's decode counts a ``kernel`` launch."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+    from feedback_gnn_tpu_torch.models import gnn_bp4_count
+    from feedback_gnn_tpu_torch.ops import mod2_matmul
+
+    host = tc.QuantumGraph.from_code(tc.ghp_882_24(), stage_mode=True)
+    graph, rs = host.to(card), gnn_full.make_logit_rowsets(host, card)
+    params, cfg = gnn_full.load_shipped("n882", card)
+    nx, nz = (torch.nn.functional.pad(t.to(torch.int32), (0, 0, 0, graph.n_pad - graph.n)).to(card)
+              for t in _pauli(graph.n, 2048, 0.03, 33))
+    sx, sz = mod2_matmul(graph.hx, nz), mod2_matmul(graph.hz, nx)
+    with torch.no_grad():
+        out = gnn_full.gnn_bp4_apply(params, graph, rs, sx, sz, cfg)
+        monkeypatch.setattr(gnn_full, "takes_kernel", lambda *args, **kw: False)
+        ref = gnn_full.gnn_bp4_apply(params, graph, rs, sx, sz, cfg)
+        monkeypatch.undo()
+        obs.reset()
+        gnn_bp4_count(graph, rs, params, cfg, nx[:graph.n, :256], nz[:graph.n, :256])
+        keys = obs.snapshot()["keys"].get("gnn_bp4.launches", {})
+    differ = ((out[0] != ref[0]) | (out[1] != ref[1]))[:graph.n].any(dim=0)
+    assert 1.0 - float(differ.float().mean()) >= 0.99
+    assert keys == {("kernel", "cn", 256): cfg.num_iter, ("kernel", "vn", 256): cfg.num_iter}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["float64", "devices", "bias"])
+def test_gnn_bp4_kernel_path_refuses_what_it_cannot_take(card, case):
+    """A card call on the kernel path with inputs or parameters the kernel
+    cannot read raises ValueError; nothing falls back to the plain version."""
+    from feedback_gnn_tpu_torch.decoders import gnn_full
+
+    graph = _gnn_bp4_graph("gb48", card)
+    params, cfg = _gnn_bp4_params("gb48", card)
+    h_vn, hx, hz, lx, lz, _, _ = _gnn_bp4_states(graph, 8, card, seed=3)
+    if case == "float64":
+        hx = hx.double()
+    elif case == "devices":
+        lz = lz.cpu()
+    else:
+        params = copy.deepcopy(params)
+        params["cn_msg_mlp_z"][0]["bias"] = torch.zeros(40, device=card)
+    obs.reset()
+    with torch.no_grad(), pytest.raises(ValueError):
+        gnn_full._update_cn(params, graph, cfg, h_vn, hx, hz, lx, lz)
+    assert obs.snapshot()["keys"].get("gnn_bp4.launches", {}) == {}
