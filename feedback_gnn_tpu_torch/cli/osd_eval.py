@@ -1,13 +1,20 @@
-"""Plain BP and BP + OSD-0 evaluation of the [[882,24]] GHP code, the
-counterpart of examples/osd_eval.py: (a) plain BP4 and (b) BP4 + OSD-0 on
-the depolarizing channel, (c) plain BP2 and (d) BP2 + OSD-0 on the BSC;
-and (e) the fully-learned GNN decoder GNN_BP4 on the depolarizing channel,
-the learned baseline beside them.
+"""Plain BP and BP + OSD-0 evaluation of a CSS code, the counterpart of
+examples/osd_eval.py: (a) plain BP4 and (b) BP4 + OSD-0 on the
+depolarizing channel, (c) plain BP2 and (d) BP2 + OSD-0 on the BSC; and
+(e) the fully-learned GNN decoder GNN_BP4 on the depolarizing channel, the
+learned baseline beside them.
 
     python -m feedback_gnn_tpu_torch.cli.osd_eval -p 0.10 0.09 -bs 2000 --osd-cap 256
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp2-osd -p 0.05 --osd-cap 1536
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode bp4-osd -p 0.10 -bs 20480 --osd-cap 1024
     python -m feedback_gnn_tpu_torch.cli.osd_eval --mode gnn-bp4 -p 0.03 -bs 20480
+    python -m feedback_gnn_tpu_torch.cli.osd_eval --code gb48_oc --mode bp4 -p 0.02 -bs 20480
+
+``--code`` names the code (``CODES``): the [[882,24]] QC-GHP code
+(``n882``, the default) or the [[48,6,8]] and [[46,2,9]] GB codes with
+their overcomplete check matrices (``gb48_oc``: 1,000 rows a side, VN
+degree up to 261; ``gb46_oc``: 400).  Plain BP2 needs a block-circulant
+code; GNN_BP4's weights must be trained on the code.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The plain BP2 mode
 decodes on the fused QC BP2 decode (the CUDA kernel on the card); the OSD
@@ -29,15 +36,26 @@ import argparse
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..codes import QuantumGraph, build_graph, ghp_882_24, qc_pair_from_code, row_basis, row_echelon
+from .. import codes, obs, resolve_device
+from ..codes import QuantumGraph, build_graph, qc_pair_from_code, row_basis, row_echelon
 from ..sim import PlotLER
 
-__all__ = ["make_parser", "make_step", "main"]
+__all__ = ["CODES", "build_code", "make_parser", "make_step", "main"]
+
+# --code name -> constructor in codes/
+CODES = {"n882": "ghp_882_24", "gb48_oc": "gb_n48_k6_d8_oc", "gb46_oc": "gb_n46_k2_d9_oc"}
+
+
+@obs.setup("code", fn="osd_eval.build_code")
+def build_code(name: str):
+    """The ``CSSCode`` of a ``--code`` name."""
+    return getattr(codes, CODES[name])()
 
 
 def make_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="plain BP and BP + OSD-0 evaluation of [[882,24]]")
+    ap = argparse.ArgumentParser(description="plain BP and BP + OSD-0 evaluation of a CSS code")
+    ap.add_argument("--code", choices=list(CODES), default="n882",
+                    help="the code: [[882,24]] (n882), or a GB code with overcomplete check matrices")
     ap.add_argument("-p", type=float, nargs="+", default=[0.10])
     ap.add_argument("-bs", "--batch-size", type=int, default=2000)
     ap.add_argument("--target-errors", type=int, default=50)
@@ -88,7 +106,10 @@ def make_step(args, code, device):
         return step, f"plain BP4-{iters} {cn} f={factor} [{args.accounting}]"
     if args.mode == "bp2":
         hx_graph = build_graph(np.asarray(code.hx)).to(device)
-        spec = qc_pair_from_code(code).qx  # the QC structure of hx
+        qc = qc_pair_from_code(code)
+        if qc is None:
+            raise ValueError(f"--mode bp2 decodes on the fused QC BP2 decode: {code.name} is not block-circulant")
+        spec = qc.qx  # the QC structure of hx
         iters = args.iters or 100
         cn = args.cn_type or "minsum"
         factor = args.factor if args.factor is not None else 0.8
@@ -139,7 +160,7 @@ def main(argv=None):
     SimResult."""
     args = make_parser().parse_args(argv)
     device = resolve_device(args.device)
-    code = ghp_882_24()
+    code = build_code(args.code)
     step, legend = make_step(args, code, device)
     plot = PlotLER(title=f"{code.name} {legend}")
     result = plot.simulate(

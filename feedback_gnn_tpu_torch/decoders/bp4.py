@@ -18,6 +18,12 @@ group, so the marginals and decisions are replicated, while messages,
 syndromes and check logits stay shard-local.  The marginals are marked
 with ``pvary`` where they enter shard-local work, so that autograd sums
 their cotangents over the group.
+
+Spans (obs.py): ``bp4.vn`` each VN update (both sides), ``bp4.cn`` each CN
+update with its gather and scatter (both sides), both with the attribute
+``iteration``, and ``bp4.logits`` the final check logits.  Counter
+``bp4.decodes``, card calls only, keyed by (batch, iterations, CN rule,
+(VN slots, CN slots)), the slot counts the larger of the two sides'.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from ..parallel.collectives import pvary
 from .cn_update import CN_UPDATES, boxplus_rows, cn_update_phi, softplus
 from .graph_ops import expand_vn, gather_to_cn, pad_rows_to, scatter_from_cn, vn_sum
@@ -128,6 +135,9 @@ def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
     gx, gz = graph.gx, graph.gz
     b = llr_ch.shape[-1]
     dev = llr_ch.device
+    if llr_ch.is_cuda:
+        slots = (max(gx.max_vn_deg, gz.max_vn_deg), max(gx.max_cn_deg, gz.max_cn_deg))
+        obs.count("bp4.decodes", key=(b, num_iter, cn_type, slots))
 
     llr_ch = pad_rows_to(llr_ch.to(torch.float32), gx.n_pad)
     syn_x_pm = 1.0 - 2.0 * pad_rows_to(syndrome_x.to(torch.float32), gx.c_pad)
@@ -136,20 +146,23 @@ def bp4_decode(graph, llr_ch, syndrome_x, syndrome_z, num_iter: int,
     msg_x = torch.zeros((gx.max_vn_deg, gx.n_pad, b), dtype=torch.float32, device=dev)
     msg_z = torch.zeros((gz.max_vn_deg, gz.n_pad, b), dtype=torch.float32, device=dev)
     xs, zs = [], []
-    for _ in range(num_iter):
-        new_msg_x, new_msg_z, llrx, llry, llrz = _vn_update(msg_x, msg_z, llr_ch, graph, axis)
+    for it in range(num_iter):
+        with obs.span("bp4.vn", iteration=it):
+            new_msg_x, new_msg_z, llrx, llry, llrz = _vn_update(msg_x, msg_z, llr_ch, graph, axis)
         if collect_logits:
             x_logit, z_logit = _cal_logit(llrx, llry, llrz, graph, phi_impl)
             xs.append(x_logit)
             zs.append(z_logit)
-        mcx = cn_update(gather_to_cn(new_msg_x, gx), syn_x_pm, gx.cn_mask) * normalization_factor
-        msg_x = scatter_from_cn(mcx, gx)
-        mcz = cn_update(gather_to_cn(new_msg_z, gz), syn_z_pm, gz.cn_mask) * normalization_factor
-        msg_z = scatter_from_cn(mcz, gz)
+        with obs.span("bp4.cn", iteration=it):
+            mcx = cn_update(gather_to_cn(new_msg_x, gx), syn_x_pm, gx.cn_mask) * normalization_factor
+            msg_x = scatter_from_cn(mcx, gx)
+            mcz = cn_update(gather_to_cn(new_msg_z, gz), syn_z_pm, gz.cn_mask) * normalization_factor
+            msg_z = scatter_from_cn(mcz, gz)
 
     # final marginals and logits
     llrx, llry, llrz = _marginals(msg_x, msg_z, llr_ch, graph, axis)
-    x_logit, z_logit = _cal_logit(llrx, llry, llrz, graph, phi_impl)
+    with obs.span("bp4.logits"):
+        x_logit, z_logit = _cal_logit(llrx, llry, llrz, graph, phi_impl)
 
     logit_stack = None
     if collect_logits:

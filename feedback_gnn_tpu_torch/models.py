@@ -23,7 +23,8 @@ The OSD steps decode with the gather decoders, as the JAX package's do;
 emits the spans ``step.sample`` and ``step.account`` and ends the batch
 (``obs.end_batch``) once a step; its BP decode is the span ``osd.bp``.
 ``gnn_bp4_eval_step`` does the same, with its decode in the span
-``gnn_bp4.decode``.
+``gnn_bp4.decode``, and ``bp4_plain_eval_step`` with its gather BP4 decode
+in the span ``bp4.decode``.
 """
 
 from __future__ import annotations
@@ -130,22 +131,28 @@ def bp4_plain_count(graph, noise_x, noise_z, p, num_iter: int = 64,
                     accounting: str = "all"):
     """Decode the syndromes of given Pauli errors ``noise_x``/``noise_z``
     [n, B] (0/1) with the gather BP4 and count the errors; the
-    decode-and-count part of ``bp4_plain_eval_step``."""
+    decode-and-count part of ``bp4_plain_eval_step``.  Ends the batch
+    (``obs.end_batch``)."""
     n, batch = noise_x.shape
-    noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
-    noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
-    syndrome_x = mod2_matmul(graph.hx, noise_z)
-    syndrome_z = mod2_matmul(graph.hz, noise_x)
-    p_prior = p if p0 is None else p0
-    llr0 = prior_llr(p_prior, n, batch, n_pad=graph.n_pad, device=noise_x.device)
+    with obs.span("step.sample"):
+        noise_x = pad_rows_to(noise_x.to(torch.int32), graph.n_pad)
+        noise_z = pad_rows_to(noise_z.to(torch.int32), graph.n_pad)
+        syndrome_x = mod2_matmul(graph.hx, noise_z)
+        syndrome_z = mod2_matmul(graph.hz, noise_x)
+        p_prior = p if p0 is None else p0
+        llr0 = prior_llr(p_prior, n, batch, n_pad=graph.n_pad, device=noise_x.device)
 
-    res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, num_iter, cn_type, normalization_factor)
-    x_diff = noise_x ^ res.x_hat
-    z_diff = noise_z ^ res.z_hat
-    s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)], dim=0)
-    ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)],
-                       dim=0)
-    return _counts(s_hat, ls_hat, accounting)
+    with obs.span("bp4.decode"):
+        res = bp4_decode(graph, llr0, syndrome_x, syndrome_z, num_iter, cn_type, normalization_factor)
+    with obs.span("step.account"):
+        x_diff = noise_x ^ res.x_hat
+        z_diff = noise_z ^ res.z_hat
+        s_hat = torch.cat([mod2_matmul(graph.hz, x_diff), mod2_matmul(graph.hx, z_diff)], dim=0)
+        ls_hat = torch.cat([mod2_matmul(graph.hx_perp, x_diff), mod2_matmul(graph.hz_perp, z_diff)],
+                           dim=0)
+        out = _counts(s_hat, ls_hat, accounting)
+    obs.end_batch()
+    return out
 
 
 def bp4_plain_eval_step(graph, generator: torch.Generator, p, batch: int, num_iter: int = 64,
@@ -155,8 +162,9 @@ def bp4_plain_eval_step(graph, generator: torch.Generator, p, batch: int, num_it
     original's "plain BP4" rows; its notebook tables use
     accounting="undetected", see ``_counts``).  ``graph`` is a
     ``QuantumGraph`` of tensors."""
-    px, py, pz = depolarizing_probs(p)
-    noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
+    with obs.span("step.sample"):
+        px, py, pz = depolarizing_probs(p)
+        noise_x, noise_z = pauli_iid(generator, px, py, pz, graph.n, batch)
     return bp4_plain_count(graph, noise_x, noise_z, p, num_iter, cn_type, normalization_factor,
                            p0, accounting)
 
